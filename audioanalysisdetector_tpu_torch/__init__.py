@@ -1,0 +1,29 @@
+"""audioanalysisdetector_tpu_torch — the detector on PyTorch and CUDA.
+
+A port of the JAX package beside it (JAX on a TPU) to PyTorch on an
+NVIDIA H100, module for module at the same paths. The JAX package is the
+frozen reference: every ported function is tested against it on the same
+inputs and weights. This package imports torch and numpy, never jax.
+
+Ported so far: the mel scoring path, wav -> log-mel -> CNN-BiLSTM -> score,
+served over HTTP.
+
+- ``frontend``: STFT power, Slaney mel, dB (``melspectrogram`` launches the
+  hand-written ``ops.wave_mel`` kernel on CUDA tensors).
+- ``ops``:      hand-written Hopper kernels (CUDA C++, built with nvcc at
+  first use) beside their plain PyTorch versions.
+- ``models``:   BiLSTM and the CNN-BiLSTM hybrid.
+- ``score``:    the end-to-end mel scorer.
+- ``serve``:    the micro-batching HTTP service; ``cli`` its command line.
+- ``convert``:  flax parameters -> the port's state_dict.
+"""
+
+__version__ = "0.1.0"
+
+from audioanalysisdetector_tpu_torch.frontend import (  # noqa: F401
+    MelConfig,
+    amplitude_to_db,
+    log_mel_spectrogram,
+    melspectrogram,
+    power_to_db,
+)

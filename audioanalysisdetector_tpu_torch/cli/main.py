@@ -1,0 +1,159 @@
+"""Command-line entry points of the PyTorch port.
+
+  serve   HTTP scoring service: dynamic micro-batching in front of one card
+
+The flags are those of the JAX package's ``serve`` command, plus
+``--device``. Multi-device data parallelism (``--data-parallel on``) and
+multi-process serving (``--workers`` > 1) are not ported yet and are
+refused. Run as ``python -m audioanalysisdetector_tpu_torch serve ...``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def cmd_serve(args) -> int:
+    """HTTP scoring service (serve/server.py): build the scorer, warm up
+    every bucket, bind, serve until SIGINT."""
+    from audioanalysisdetector_tpu_torch.serve.server import (
+        BatchingScorer,
+        ScoreServer,
+        build_mel_scorer,
+        default_bucket_ladder,
+    )
+
+    if not args.checkpoint and not args.allow_random:
+        print(
+            "serve: no --checkpoint given — scores from randomly initialized "
+            "weights are meaningless. Pass --checkpoint <state_dict.pt>, "
+            "or --allow-random to proceed anyway (smoke tests only).",
+            file=sys.stderr,
+        )
+        return 2
+    if args.workers > 1 or args.data_parallel == "on":
+        print(
+            "serve: --workers > 1 and --data-parallel on are not ported to "
+            "audioanalysisdetector_tpu_torch yet (one device, one process)",
+            file=sys.stderr,
+        )
+        return 2
+    scorer, n_samples = build_mel_scorer(
+        checkpoint=args.checkpoint,
+        sr=args.sr,
+        seconds=args.seconds,
+        n_mels=args.n_mels,
+        mel_profile=args.mel_profile,
+        device=args.device,
+    )
+    if args.buckets:
+        buckets = tuple(int(b) for b in args.buckets.split(","))
+    else:
+        buckets = default_bucket_ladder(args.max_batch)
+    batcher = BatchingScorer(
+        scorer,
+        n_samples=n_samples,
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        bucket_sizes=buckets,
+        adaptive=not args.no_adaptive,
+    )
+    batcher.warm_up()
+    server = ScoreServer(batcher, sr=args.sr, host=args.host, port=args.port)
+    print(
+        json.dumps(
+            {
+                "listening": f"http://{args.host}:{server.port}",
+                "endpoints": ["/v1/score", "/v1/score_raw", "/v1/stats", "/healthz"],
+                "max_batch": args.max_batch,
+                "buckets": list(batcher.bucket_sizes),
+                "n_samples": n_samples,
+                "adaptive": batcher.adaptive,
+                "device": args.device,
+            }
+        ),
+        flush=True,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="audioanalysisdetector_tpu_torch",
+        description="audio deepfake detection on PyTorch + CUDA",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    sp = sub.add_parser(
+        "serve", help="HTTP scoring service with dynamic micro-batching"
+    )
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8710)
+    sp.add_argument("--sr", type=int, default=16000)
+    sp.add_argument("--seconds", type=float, default=2.0)
+    sp.add_argument("--n-mels", type=int, default=64)
+    sp.add_argument(
+        "--mel-profile", choices=("parity", "speech"), default="parity",
+        help="'parity' = librosa-default 2048-pt mel (the reference "
+        "contract); 'speech' = 32 ms/16 ms speech-standard resolution "
+        "(use the SAME profile for train + score)",
+    )
+    sp.add_argument(
+        "--device", default="cuda",
+        help="torch device the scorer runs on (cuda launches the wave_mel kernel)",
+    )
+    sp.add_argument(
+        "--max-batch", type=int, default=256,
+        help="row budget per device dispatch (largest dispatch shape)",
+    )
+    sp.add_argument(
+        "--buckets", default=None,
+        help="comma-separated dispatch-size ladder ending at max-batch "
+        "(default: powers of two max-batch/8..max-batch); partial batches "
+        "pad up to the smallest bucket instead of max-batch",
+    )
+    sp.add_argument(
+        "--data-parallel", choices=("auto", "on", "off"), default="auto",
+        help="accepted for compatibility; the port serves from one device "
+        "(auto/off), 'on' is refused",
+    )
+    sp.add_argument(
+        "--max-wait-ms", type=float, default=5.0,
+        help="micro-batching window CAP: bursts ship when the row budget "
+        "fills; otherwise the adaptive policy ships as soon as the arrival-"
+        "rate estimate says the next bucket boundary is out of reach "
+        "(--no-adaptive waits the full window instead)",
+    )
+    sp.add_argument(
+        "--no-adaptive", action="store_true",
+        help="disable the EWMA arrival-rate window (always wait max-wait-ms "
+        "for a partial batch)",
+    )
+    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument(
+        "--allow-random", action="store_true",
+        help="serve randomly initialized weights (smoke tests only)",
+    )
+    sp.add_argument(
+        "--workers", type=int, default=1,
+        help="accepted for compatibility; only 1 (single process) is ported",
+    )
+    sp.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,173 @@
+"""Mel power straight from raw waveforms: the hand-written Hopper kernel.
+
+Counterpart of the JAX package's ``ops/wave_mel.py::wave_mel``
+(wrapper ``wave_log_mel``): center-padded waveforms ``(B, n_pad)`` -> mel
+power ``(B, n_frames, n_mels)``. Frame rows are read straight from the
+padded waveform at ``u * n_pad + f * hop``, so no frame matrix ever exists
+in device memory; the windowed-DFT products, |X|^2 and the mel projection
+all happen on chip. The CUDA source is ``ops/csrc/wave_mel.cu`` (design and
+bounds in its header note).
+
+``wave_mel`` launches the kernel on a CUDA tensor and runs
+``wave_mel_reference``, the plain PyTorch version of the same function, on
+a CPU tensor. There is no fallback: a failed build, a missing ``nvcc`` or a
+refused launch raises. Unlike the TPU kernel, any batch size is taken (the
+ragged last row tile is masked in the kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
+from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+from audioanalysisdetector_tpu_torch.frontend.stft import _rdft_bases, center_pad, n_frames_for
+from audioanalysisdetector_tpu_torch.ops import _build
+
+K_TILE = 64  # frequency bins per tile; must equal KT in csrc/wave_mel.cu
+MAX_MELS = 128  # the kernel keeps at most 128 mel accumulators per row
+
+# Kernel launches made by ``wave_mel`` in this process. Only the wrapper's
+# CUDA branch adds to it, one per launch, so a run can show that its main
+# path went through the kernel (reset it to 0 before the run, read after).
+launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@lru_cache(maxsize=None)
+def _operands(cfg: MelConfig, k_pad: int):
+    cos_b, sin_b = _rdft_bases(cfg.n_fft, cfg.window, cfg.win_length or cfg.n_fft)
+    melT = cfg.filterbank().T.astype(np.float32)
+    n_freq = cos_b.shape[1]
+    cos_p = np.zeros((cfg.n_fft, k_pad), np.float32)
+    sin_p = np.zeros((cfg.n_fft, k_pad), np.float32)
+    mel_p = np.zeros((k_pad, melT.shape[1]), np.float32)
+    cos_p[:, :n_freq] = cos_b
+    sin_p[:, :n_freq] = sin_b
+    mel_p[:n_freq] = melT
+    return cos_p, sin_p, mel_p
+
+
+@lru_cache(maxsize=None)
+def _operands_on(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The padded bases and mel matrix, uploaded once per (config, device).
+
+    At n_fft 2048 the two bases are 17.8 MB together and stay resident in
+    the H100's 50 MB L2 while every block of a launch reads them."""
+    k_pad = _round_up(cfg.n_fft // 2 + 1, K_TILE)
+    return tuple(torch.from_numpy(a).to(device) for a in _operands(cfg, k_pad))
+
+
+@lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load_library("wave_mel").wave_mel_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
+        ctypes.c_int
+    ] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(wav_padded: torch.Tensor, cfg: MelConfig, n_frames: int) -> None:
+    if wav_padded.dim() != 2:
+        raise ValueError(f"expected (B, n_padded) waveforms, got {tuple(wav_padded.shape)}")
+    if wav_padded.dtype != torch.float32:
+        raise NotImplementedError(f"wave_mel takes float32, got {wav_padded.dtype}")
+    if cfg.power != 2.0:
+        raise NotImplementedError(f"wave_mel computes power 2 only, got {cfg.power}")
+    if cfg.n_mels > MAX_MELS:
+        raise NotImplementedError(f"wave_mel takes at most {MAX_MELS} mels, got {cfg.n_mels}")
+    if not wav_padded.is_contiguous():
+        raise ValueError("wave_mel needs a contiguous waveform tensor")
+    if n_frames < 1 or (n_frames - 1) * cfg.hop_length + cfg.n_fft > wav_padded.shape[1]:
+        # the kernel reads frame rows unchecked: an oversized n_frames would
+        # read past each utterance into the next one
+        raise ValueError("padded signal too short for n_frames")
+
+
+def wave_mel_reference(
+    wav_padded: torch.Tensor, cfg: MelConfig = MelConfig(), *, n_frames: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: frames via ``unfold``, the two
+    DFT matmuls, |X|^2 and the mel matmul -> ``(B, n_frames, n_mels)``."""
+    _check(wav_padded, cfg, n_frames)
+    cos_p, sin_p, mel_p = _operands_on(cfg, wav_padded.device)
+    frames = wav_padded.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :n_frames]
+    re = frames @ cos_p
+    im = frames @ sin_p
+    return (re * re + im * im) @ mel_p
+
+
+def wave_mel(
+    wav_padded: torch.Tensor, cfg: MelConfig = MelConfig(), *, n_frames: int
+) -> torch.Tensor:
+    """(B, n_padded) center-padded waveforms -> (B, n_frames, n_mels) mel.
+
+    ``wav_padded`` must already carry the center padding (n_fft//2 each
+    side, reflect). On a CUDA tensor this launches the kernel on the current
+    stream; on a CPU tensor it is ``wave_mel_reference``.
+    """
+    global launches
+    _check(wav_padded, cfg, n_frames)
+    if not wav_padded.is_cuda:
+        if wav_padded.device.type != "cpu":
+            raise NotImplementedError(f"wave_mel has no path for {wav_padded.device}")
+        return wave_mel_reference(wav_padded, cfg, n_frames=n_frames)
+    B, n_pad = wav_padded.shape
+    if B * n_frames >= 2**31:
+        raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
+    cos_p, sin_p, mel_p = _operands_on(cfg, wav_padded.device)
+    out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
+    fn = _kernel()
+    with torch.cuda.device(wav_padded.device):
+        rc = fn(
+            wav_padded.data_ptr(),
+            cos_p.data_ptr(),
+            sin_p.data_ptr(),
+            mel_p.data_ptr(),
+            out.data_ptr(),
+            B * n_frames,
+            n_frames,
+            n_pad,
+            cfg.n_fft,
+            cfg.hop_length,
+            cos_p.shape[1],
+            cfg.n_mels,
+            torch.cuda.current_stream(wav_padded.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"wave_mel kernel launch failed with CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def wave_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """``(..., n)`` raw waveforms -> ``(..., T, n_mels)`` through ``wave_mel``,
+    applying ``cfg.center`` / ``cfg.pad_mode`` first (``melspectrogram``'s
+    CUDA route)."""
+    lead, n = y.shape[:-1], y.shape[-1]
+    n_frames = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
+    flat = y.reshape(-1, n)
+    if cfg.center:
+        flat = center_pad(flat, cfg.n_fft, cfg.pad_mode)
+    mel = wave_mel(flat.contiguous(), cfg, n_frames=n_frames)
+    return mel.reshape(*lead, n_frames, cfg.n_mels)
+
+
+def wave_log_mel(
+    wav: torch.Tensor,
+    cfg: MelConfig = MelConfig(),
+    *,
+    ref="max",
+    top_db: float | None = 80.0,
+) -> torch.Tensor:
+    """Drop-in (B, n) -> (B, n_mels, T) using the wave-direct kernel."""
+    mel = wave_mel_unpadded(wav, cfg).transpose(-1, -2)
+    return power_to_db(mel, ref=ref, top_db=top_db, utt_axes=2)

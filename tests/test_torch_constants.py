@@ -1,0 +1,88 @@
+"""The PyTorch port's host-side constants are bitwise the JAX package's.
+
+The port copies the numpy builders (windows, DFT bases, mel filterbank, the
+padded wave_mel operands) instead of importing them, because importing the
+JAX package pulls in jax. These tests hold each copy to the original, in
+both mel profiles, and check that the port imports without jax.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import audioanalysisdetector_tpu.frontend.mel as jmel
+import audioanalysisdetector_tpu.frontend.windows as jwin
+from audioanalysisdetector_tpu.frontend.stft import _rdft_bases as j_rdft_bases
+from audioanalysisdetector_tpu.frontend.stft import _window_array as j_window_array
+from audioanalysisdetector_tpu.frontend.stft import n_frames_for as j_n_frames_for
+from audioanalysisdetector_tpu.ops.wave_mel import K_TILE as J_K_TILE
+from audioanalysisdetector_tpu.ops.wave_mel import _operands as j_operands
+from audioanalysisdetector_tpu_torch.frontend import mel as tmel
+from audioanalysisdetector_tpu_torch.frontend import stft as tstft
+from audioanalysisdetector_tpu_torch.frontend import windows as twin
+from audioanalysisdetector_tpu_torch.ops.wave_mel import K_TILE, _operands, _round_up
+
+torch.set_num_threads(2)
+
+PROFILES = ("parity", "speech")
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["hann", "hamming"])
+@pytest.mark.parametrize("n", [1, 400, 512, 2048])
+def test_get_window_bitwise(name, n):
+    _same(twin.get_window(name, n), jwin.get_window(name, n))
+    _same(twin.pad_center(twin.get_window(name, n), 2048), jwin.pad_center(jwin.get_window(name, n), 2048))
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_stft_and_mel_constants_bitwise(profile):
+    tcfg = tmel.MelConfig.for_profile(profile)
+    jcfg = jmel.MelConfig.for_profile(profile)
+    assert (tcfg.n_fft, tcfg.hop_length, tcfg.n_mels) == (jcfg.n_fft, jcfg.hop_length, jcfg.n_mels)
+    _same(tstft._window_array("hann", tcfg.n_fft, tcfg.n_fft), j_window_array("hann", jcfg.n_fft, jcfg.n_fft))
+    for a, b in zip(tstft._rdft_bases(tcfg.n_fft, "hann", tcfg.n_fft), j_rdft_bases(jcfg.n_fft, "hann", jcfg.n_fft)):
+        _same(a, b)
+    _same(tcfg.filterbank(), jcfg.filterbank())
+    _same(tmel.mel_filterbank(16000.0, tcfg.n_fft, 128), jmel.mel_filterbank(16000.0, jcfg.n_fft, 128))
+    assert tstft.n_frames_for(32000, tcfg.hop_length, tcfg.n_fft, True) == j_n_frames_for(
+        32000, jcfg.hop_length, jcfg.n_fft, True
+    )
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_wave_mel_operands_bitwise(profile):
+    tcfg = tmel.MelConfig.for_profile(profile)
+    jcfg = jmel.MelConfig.for_profile(profile)
+    n_freq = tcfg.n_fft // 2 + 1
+    # the port's 64-bin tile and the TPU kernel's 256-bin tile
+    for k_pad in {_round_up(n_freq, K_TILE), _round_up(n_freq, J_K_TILE)}:
+        for a, b in zip(_operands(tcfg, k_pad), j_operands(jcfg, k_pad)):
+            _same(a, b)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import audioanalysisdetector_tpu_torch\n"
+        "import audioanalysisdetector_tpu_torch.frontend, audioanalysisdetector_tpu_torch.ops\n"
+        "import audioanalysisdetector_tpu_torch.models, audioanalysisdetector_tpu_torch.score\n"
+        "import audioanalysisdetector_tpu_torch.serve, audioanalysisdetector_tpu_torch.convert\n"
+        "import audioanalysisdetector_tpu_torch.cli.main, audioanalysisdetector_tpu_torch.entry\n"
+        "import audioanalysisdetector_tpu_torch.__main__\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'audioanalysisdetector_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, timeout=120, cwd=Path(__file__).resolve().parents[1]
+    )
