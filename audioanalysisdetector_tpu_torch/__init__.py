@@ -6,15 +6,17 @@ frozen reference: every ported function is tested against it on the same
 inputs and weights. This package imports torch and numpy, never jax.
 
 Ported so far: the mel scoring path, wav -> log-mel -> CNN-BiLSTM -> score,
-served over HTTP.
+served over HTTP and over files from disk (``score`` command).
 
-- ``frontend``: STFT power, Slaney mel, dB (``melspectrogram`` launches the
-  hand-written ``ops.wave_mel`` kernel on CUDA tensors).
+- ``frontend``: STFT power, Slaney mel, dB (``melspectrogram`` launches a
+  hand-written kernel on CUDA tensors: ``ops.ct_mel`` at the parity
+  profile, ``ops.wave_mel`` elsewhere).
 - ``ops``:      hand-written Hopper kernels (CUDA C++, built with nvcc at
   first use) beside their plain PyTorch versions.
 - ``models``:   BiLSTM and the CNN-BiLSTM hybrid.
-- ``score``:    the end-to-end mel scorer.
-- ``serve``:    the micro-batching HTTP service; ``cli`` its command line.
+- ``score``:    the end-to-end mel scorer; streaming file scoring.
+- ``serve``:    the micro-batching HTTP service; ``cli`` the command line.
+- ``io``:       WAV/FLAC decoders and the native batch loader (host side).
 - ``convert``:  flax parameters -> the port's state_dict.
 """
 

@@ -1,18 +1,70 @@
 """Command-line entry points of the PyTorch port.
 
+  score   log-mel + CNN-BiLSTM spoof scoring over a directory of WAV/FLAC files
   serve   HTTP scoring service: dynamic micro-batching in front of one card
 
-The flags are those of the JAX package's ``serve`` command, plus
-``--device``. Multi-device data parallelism (``--data-parallel on``) and
+The flags are those of the JAX package's commands, plus ``--device``.
+Multi-device data parallelism (``serve --data-parallel on``) and
 multi-process serving (``--workers`` > 1) are not ported yet and are
-refused. Run as ``python -m audioanalysisdetector_tpu_torch serve ...``.
+refused. Run as ``python -m audioanalysisdetector_tpu_torch score ...``.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob as globlib
 import json
+import os
 import sys
+
+
+def _collect_wavs(path: str) -> list[str]:
+    """All WAV/FLAC files under a directory, or a glob's matches."""
+    if os.path.isdir(path):
+        return sorted(
+            globlib.glob(os.path.join(path, "**", "*.wav"), recursive=True)
+            + globlib.glob(os.path.join(path, "**", "*.flac"), recursive=True)
+        )
+    return sorted(globlib.glob(path))
+
+
+def cmd_score(args) -> int:
+    """Stream-decode the files and score them on ``--device``: one JSON
+    line per file on stdout, then the kernel launch counts of the run as one
+    JSON line on stderr."""
+    from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.score.e2e import (
+        init_mel_cnn_bilstm,
+        make_mel_cnn_bilstm_scorer,
+    )
+    from audioanalysisdetector_tpu_torch.score.streaming import score_paths
+
+    if not args.checkpoint and not args.allow_random:
+        print(
+            "score: no --checkpoint given — scores from randomly initialized "
+            "weights are meaningless. Pass --checkpoint <state_dict.pt>, "
+            "or --allow-random to proceed anyway (smoke tests only).",
+            file=sys.stderr,
+        )
+        return 2
+    paths = _collect_wavs(args.audio)
+    if not paths:
+        print(f"no WAV files under {args.audio}", file=sys.stderr)
+        return 1
+    mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
+    model = init_mel_cnn_bilstm(
+        mel_cfg, int(args.seconds * args.sr), checkpoint=args.checkpoint,
+        device=args.device,
+    )
+    kept, scores = score_paths(
+        make_mel_cnn_bilstm_scorer(model, mel_cfg), paths, device=args.device,
+        seconds=args.seconds, sr=args.sr, batch_size=args.batch_size,
+    )
+    for p, s in zip(kept, scores):
+        print(json.dumps({"file": p, "spoof_score": float(s), "label": int(s > 0.5)}))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -92,24 +144,43 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
 
+    def mel_flags(sp):
+        sp.add_argument("--sr", type=int, default=16000)
+        sp.add_argument("--seconds", type=float, default=2.0)
+        sp.add_argument("--n-mels", type=int, default=64)
+        sp.add_argument(
+            "--mel-profile", choices=("parity", "speech"), default="parity",
+            help="'parity' = librosa-default 2048-pt mel (the reference "
+            "contract); 'speech' = 32 ms/16 ms speech-standard resolution "
+            "(use the SAME profile for train + score)",
+        )
+        sp.add_argument(
+            "--device", default="cuda",
+            help="torch device the scorer runs on (cuda launches the mel "
+            "kernel: ct_mel at parity, wave_mel at speech)",
+        )
+
+    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM spoof scoring")
+    sp.add_argument("audio", help="WAV/FLAC directory or glob")
+    mel_flags(sp)
+    sp.add_argument(
+        "--batch-size", type=int, default=512,
+        help="streaming batch size (decode of batch k+1 overlaps device "
+        "scoring of batch k)",
+    )
+    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument(
+        "--allow-random", action="store_true",
+        help="score with randomly initialized weights (smoke tests only)",
+    )
+    sp.set_defaults(fn=cmd_score)
+
     sp = sub.add_parser(
         "serve", help="HTTP scoring service with dynamic micro-batching"
     )
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8710)
-    sp.add_argument("--sr", type=int, default=16000)
-    sp.add_argument("--seconds", type=float, default=2.0)
-    sp.add_argument("--n-mels", type=int, default=64)
-    sp.add_argument(
-        "--mel-profile", choices=("parity", "speech"), default="parity",
-        help="'parity' = librosa-default 2048-pt mel (the reference "
-        "contract); 'speech' = 32 ms/16 ms speech-standard resolution "
-        "(use the SAME profile for train + score)",
-    )
-    sp.add_argument(
-        "--device", default="cuda",
-        help="torch device the scorer runs on (cuda launches the wave_mel kernel)",
-    )
+    mel_flags(sp)
     sp.add_argument(
         "--max-batch", type=int, default=256,
         help="row budget per device dispatch (largest dispatch shape)",

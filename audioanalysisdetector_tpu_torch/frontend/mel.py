@@ -8,9 +8,12 @@ filters. The numpy builders (``hz_to_mel`` .. ``mel_filterbank``) and
 bitwise-equal constants and the same profiles.
 
 ``melspectrogram`` routes by the tensor's device: a CUDA tensor with
-``method="matmul"`` (the default, the main path) goes through the
-hand-written Hopper kernel ``ops/wave_mel.py::wave_mel``; a CPU tensor goes
-through the plain chain (frames @ DFT bases -> |.|^2 -> @ mel_fb.T).
+``method="matmul"`` (the default, the main path) goes through a
+hand-written Hopper kernel, chosen by ``mel_route`` from the configuration
+alone — ``ops/ct_mel.py::ct_mel`` (K3) where its factorization applies (the
+parity profile), ``ops/wave_mel.py::wave_mel`` (K1) everywhere else; a CPU
+tensor goes through the plain chain (frames @ DFT bases -> |.|^2 -> @
+mel_fb.T).
 """
 
 from __future__ import annotations
@@ -118,7 +121,7 @@ class MelConfig:
     fmax: float | None = None  # None -> sr / 2
     htk: bool = False
     norm: str | None = "slaney"
-    method: str = "matmul"  # spectrum path: "matmul" (wave_mel kernel on CUDA) or "fft"
+    method: str = "matmul"  # spectrum path: "matmul" (a mel kernel on CUDA) or "fft"
 
     def filterbank(self) -> np.ndarray:
         return mel_filterbank(
@@ -167,16 +170,32 @@ def _filterbank_on(cfg: MelConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(cfg.filterbank().astype(np.float32)).to(device)
 
 
+def mel_route(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> str:
+    """The kernel ``melspectrogram`` launches for a CUDA tensor of ``dtype``
+    under ``cfg`` with ``method="matmul"``: ``"ct_mel"`` (K3) wherever
+    ``ops.ct_mel.takes`` holds (its 64 x 32 factorization: the parity
+    profile), else ``"wave_mel"`` (K1). A pure function of what the call
+    can observe: no flag, no fallback."""
+    from audioanalysisdetector_tpu_torch.ops.ct_mel import takes  # imports this module
+
+    return "ct_mel" if takes(cfg, dtype) else "wave_mel"
+
+
 def melspectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """Mel power spectrogram of ``(..., n)`` waveforms -> ``(..., n_mels, T)``.
 
-    On a CUDA tensor ``method="matmul"`` launches the ``wave_mel`` kernel;
-    a configuration the kernel does not take (``power != 2``, a dtype other
-    than float32) raises ``NotImplementedError`` there instead of quietly
-    running the plain chain. ``method="fft"`` is ``torch.fft`` on any device.
+    On a CUDA tensor ``method="matmul"`` launches the kernel that
+    ``mel_route`` names; a configuration K1 does not take (``power != 2``, a
+    dtype other than float32) raises ``NotImplementedError`` there instead
+    of quietly running the plain chain. ``method="fft"`` is ``torch.fft`` on
+    any device.
     """
     if y.is_cuda and cfg.method == "matmul":
-        # imported here: ops/wave_mel.py imports this module for MelConfig
+        # imported here: the kernel modules import this one for MelConfig
+        if mel_route(cfg, y.dtype) == "ct_mel":
+            from audioanalysisdetector_tpu_torch.ops.ct_mel import ct_mel_unpadded
+
+            return ct_mel_unpadded(y, cfg).transpose(-1, -2)
         from audioanalysisdetector_tpu_torch.ops.wave_mel import wave_mel_unpadded
 
         return wave_mel_unpadded(y, cfg).transpose(-1, -2)

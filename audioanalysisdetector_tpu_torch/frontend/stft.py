@@ -13,9 +13,9 @@ Two spectrum paths, as in the JAX package:
 
 - ``method="matmul"``: the DFT as two real matmuls against precomputed
   windowed cos/sin bases (the contract). On a CUDA tensor the mel chain
-  routes this through the hand-written ``ops/wave_mel`` kernel instead
-  (``frontend/mel.py::melspectrogram``); ``power_spectrogram`` itself is the
-  plain chain.
+  routes this through a hand-written kernel instead, ``ops/ct_mel`` or
+  ``ops/wave_mel`` (``frontend/mel.py::melspectrogram``);
+  ``power_spectrogram`` itself is the plain chain.
 - ``method="fft"``: ``torch.fft.rfft`` over the windowed frames.
 
 The JAX package's ``method="block"`` (hop-block DFT decomposition) was

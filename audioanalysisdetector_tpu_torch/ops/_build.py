@@ -4,9 +4,11 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C entry point, so it compiles in
 seconds without PyTorch's headers. ``load_library(name)`` compiles it at
 first use into ``build/torch_kernels/`` beside the package (a directory git
 ignores), named by the hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is reused. ``nvcc`` is ``$CUDA_HOME/bin/nvcc``
-(``/usr/local/cuda`` when unset) or the one on ``PATH``. There is no
-fallback: a missing compiler or a failed build raises.
+rebuilt and an unchanged one is reused. Each source has its own lock, so
+threads that load different kernels run their ``nvcc`` builds in parallel.
+``nvcc`` is ``$CUDA_HOME/bin/nvcc`` (``/usr/local/cuda`` when unset) or the
+one on ``PATH``. There is no fallback: a missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # per kernel: seconds this process spent compiling it (0.0 when the library
 # was already built) and nvcc's output, which carries ptxas's register,
@@ -49,7 +52,9 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"

@@ -1,8 +1,11 @@
-// Mel power straight from raw waveforms, for Hopper (sm_90a).
+// Mel power straight from raw waveforms or from gathered frames, for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernel ops/wave_mel.py (function
-// wave_mel, body lines 91-142): center-padded waveforms
-// (B, n_pad) -> mel power (B * n_frames, n_mels), computing
+// Replaces two of the JAX package's Pallas TPU kernels with one core:
+// ops/wave_mel.py (function wave_mel, body lines 91-142; entry
+// wave_mel_launch, K1) and ops/fused_logmel.py (function
+// fused_mel_from_frames, body _kernel lines 68-81; entry frames_mel_launch,
+// K2). Center-padded waveforms (B, n_pad), or frames (N, n_fft) read as
+// n_frames = 1 rows at stride n_fft, -> mel power (n_rows, n_mels), computing
 //
 //   out[r, m] = sum_k ((sum_n x_r[n] cos[n, k])^2 + (sum_n x_r[n] sin[n, k])^2) * mel[k, m]
 //
@@ -19,7 +22,10 @@
 // them into a power tile in shared memory, and contracts that tile against
 // the (KT, n_mels) mel tile into a (ROWS, n_mels) accumulator that stays in
 // registers until the single store at the end. The ragged last row tile is
-// masked, so any batch size is taken.
+// masked, so any batch size is taken. The samples and bases are of element
+// type T: float (K1, and K2 in float32) or __nv_bfloat16 (K2's bf16
+// operands), widened to float as they are staged, so every product and sum
+// is fp32 (a bf16 x bf16 product is exact in fp32). The mel matrix is fp32.
 //
 // Bounds. The DFT products dominate: 2 * 2 * n_fft * k_pad operations per
 // frame row (about 4.6 TFLOP at n_fft 2048 for 8192 two-second
@@ -30,9 +36,12 @@
 // every utterance tile (the reason that kernel lost); here they stay
 // resident in the 50 MB L2 across all blocks, and the raw samples of a
 // block's rows (overlapping frames) are re-read from L2/L1 per tile.
+// K2 does the same work on a frame matrix; in bf16 it reads half the bytes
+// but the fp32 FMA and shared-load work is unchanged, so it is no faster.
 // Tensor-core (wgmma/TF32) products, TMA staging and skipping the zero bins
 // of the sparse mel triangles are left for later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,10 +53,13 @@ constexpr int THREADS = 256;  // 16 x 16 threads, each 4 rows x 4 columns
 constexpr int FS = NC + 1;    // padded row stride of the staged frames
 constexpr int PS = KT + 1;    // padded row stride of the power tile
 
-template <int MJ>  // mel columns per thread; n_mels <= 16 * MJ
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <int MJ, typename T>  // mel columns per thread (n_mels <= 16 * MJ); element type
 __global__ void __launch_bounds__(THREADS)
-wave_mel_kernel(const float* __restrict__ wav, const float* __restrict__ cosb,
-                const float* __restrict__ sinb, const float* __restrict__ mel,
+wave_mel_kernel(const T* __restrict__ wav, const T* __restrict__ cosb,
+                const T* __restrict__ sinb, const float* __restrict__ mel,
                 float* __restrict__ out, int n_rows, int n_frames, long long n_pad,
                 int n_fft, int hop, int k_pad, int n_mels) {
   constexpr int MP = 16 * MJ;
@@ -92,7 +104,7 @@ wave_mel_kernel(const float* __restrict__ wav, const float* __restrict__ cosb,
 #pragma unroll
       for (int q = 0; q < ROWS * NC / THREADS; ++q) {
         const int r = (tid >> 5) + 8 * q;
-        fr_s[r * FS + sc] = (fr_off[q] >= 0 && in_fft) ? wav[fr_off[q] + n0 + sc] : 0.f;
+        fr_s[r * FS + sc] = (fr_off[q] >= 0 && in_fft) ? to_f32(wav[fr_off[q] + n0 + sc]) : 0.f;
       }
       // Basis staging: element e = tid + THREADS * q of [NC][KT] is sample
       // (tid >> 6) + 4 q, bin tid & 63 (coalesced along the bins).
@@ -102,8 +114,8 @@ wave_mel_kernel(const float* __restrict__ wav, const float* __restrict__ cosb,
         const int k = tid & (KT - 1);
         const bool ok = n0 + n < n_fft;
         const long long g = (long long)(n0 + n) * k_pad + k0 + k;
-        cos_s[n * KT + k] = ok ? cosb[g] : 0.f;
-        sin_s[n * KT + k] = ok ? sinb[g] : 0.f;
+        cos_s[n * KT + k] = ok ? to_f32(cosb[g]) : 0.f;
+        sin_s[n * KT + k] = ok ? to_f32(sinb[g]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -164,18 +176,37 @@ wave_mel_kernel(const float* __restrict__ wav, const float* __restrict__ cosb,
   }
 }
 
-template <int MJ>
-cudaError_t launch(const float* wav, const float* cosb, const float* sinb, const float* mel,
+template <int MJ, typename T>
+cudaError_t launch(const T* wav, const T* cosb, const T* sinb, const float* mel,
                    float* out, int n_rows, int n_frames, long long n_pad, int n_fft, int hop,
                    int k_pad, int n_mels, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (ROWS * FS + 2 * NC * KT + ROWS * PS + KT * 16 * MJ);
   cudaError_t err = cudaFuncSetAttribute(
-      wave_mel_kernel<MJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wave_mel_kernel<MJ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((n_rows + ROWS - 1) / ROWS);
-  wave_mel_kernel<MJ><<<blocks, THREADS, smem, stream>>>(
+  wave_mel_kernel<MJ, T><<<blocks, THREADS, smem, stream>>>(
       wav, cosb, sinb, mel, out, n_rows, n_frames, n_pad, n_fft, hop, k_pad, n_mels);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const void* wav, const void* cosb, const void* sinb, const void* mel, void* out,
+               int n_rows, int n_frames, long long n_pad, int n_fft, int hop, int k_pad,
+               int n_mels, void* stream) {
+  if (n_rows < 0 || n_frames < 1 || n_fft < 1 || hop < 1 || k_pad % KT != 0 || n_mels < 1 ||
+      n_mels > 128)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* w = static_cast<const T*>(wav);
+  const T* c = static_cast<const T*>(cosb);
+  const T* sn = static_cast<const T*>(sinb);
+  const float* m = static_cast<const float*>(mel);
+  float* o = static_cast<float*>(out);
+  if (n_mels <= 64)
+    return (int)launch<4, T>(w, c, sn, m, o, n_rows, n_frames, n_pad, n_fft, hop, k_pad, n_mels, s);
+  return (int)launch<8, T>(w, c, sn, m, o, n_rows, n_frames, n_pad, n_fft, hop, k_pad, n_mels, s);
 }
 
 }  // namespace
@@ -188,17 +219,19 @@ extern "C" int wave_mel_launch(const void* wav, const void* cosb, const void* si
                                const void* mel, void* out, int n_rows, int n_frames,
                                long long n_pad, int n_fft, int hop, int k_pad, int n_mels,
                                void* stream) {
-  if (n_rows < 0 || n_frames < 1 || n_fft < 1 || hop < 1 || k_pad % KT != 0 || n_mels < 1 ||
-      n_mels > 128)
-    return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return (int)cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* w = static_cast<const float*>(wav);
-  const float* c = static_cast<const float*>(cosb);
-  const float* sn = static_cast<const float*>(sinb);
-  const float* m = static_cast<const float*>(mel);
-  float* o = static_cast<float*>(out);
-  if (n_mels <= 64)
-    return (int)launch<4>(w, c, sn, m, o, n_rows, n_frames, n_pad, n_fft, hop, k_pad, n_mels, s);
-  return (int)launch<8>(w, c, sn, m, o, n_rows, n_frames, n_pad, n_fft, hop, k_pad, n_mels, s);
+  return launch_any<float>(wav, cosb, sinb, mel, out, n_rows, n_frames, n_pad, n_fft, hop, k_pad,
+                           n_mels, stream);
+}
+
+// Second entry point (K2): frames (n_rows, n_fft) in place of the waveform,
+// each row one frame (n_frames = 1, stride n_fft). frames, cosb and sinb are
+// float32 when bf16 == 0 and bfloat16 otherwise; mel and out are float32.
+extern "C" int frames_mel_launch(const void* frames, const void* cosb, const void* sinb,
+                                 const void* mel, void* out, int n_rows, int n_fft, int k_pad,
+                                 int n_mels, int bf16, void* stream) {
+  if (bf16)
+    return launch_any<__nv_bfloat16>(frames, cosb, sinb, mel, out, n_rows, 1, n_fft, n_fft, n_fft,
+                                     k_pad, n_mels, stream);
+  return launch_any<float>(frames, cosb, sinb, mel, out, n_rows, 1, n_fft, n_fft, n_fft, k_pad,
+                           n_mels, stream);
 }

@@ -1,7 +1,7 @@
 """End-to-end mel scoring: waveform batch -> spoof scores (PyTorch).
 
 Counterpart of the JAX package's ``score/e2e.py`` (the mel half):
-log-mel (the ``wave_mel`` kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof
+log-mel (a hand-written mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof
 probability, with nothing on the host between the waveform upload and the
 ``(B,)`` scores.
 """
@@ -76,7 +76,7 @@ def make_mel_cnn_bilstm_scorer(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``(B, n_samples) -> (B,)`` spoof scores (sigmoid head), on the
     model's device, under ``torch.inference_mode()``. The waveforms are
-    scored in float32, the one type the ``wave_mel`` kernel takes.
+    scored in float32, the one type the mel kernels take.
 
     Parity mode is full fp32: this sets
     ``torch.backends.cuda.matmul.allow_tf32 = False`` and

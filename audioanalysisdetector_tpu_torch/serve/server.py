@@ -5,20 +5,20 @@ classes (``BatchingScorer``, ``ScoreServer``, ``ServeStats``, the bucket
 ladder and the adaptive window) are that module's, unchanged in behaviour;
 see its docstring for the design. What differs:
 
-- ``build_mel_scorer`` builds the port's scorer on ONE device (the
-  ``wave_mel`` kernel + CNN-BiLSTM on CUDA); multi-device data parallelism
-  and the multi-process front end (``serve/multiproc.py``) are not ported
-  yet.
+- ``build_mel_scorer`` builds the port's scorer on ONE device (the mel
+  kernel that ``frontend.mel.mel_route`` names + CNN-BiLSTM on CUDA);
+  multi-device data parallelism and the multi-process front end
+  (``serve/multiproc.py``) are not ported yet.
 - ``/healthz`` reports the scorer's device type (``"cuda"`` or ``"cpu"``).
-- The ``audio_b64`` lane needs the FLAC/WAV decoders of ``io/``, which are
-  not ported yet: it answers 400 and says so. ``pcm``, ``pcm_b64`` and
-  ``/v1/score_raw`` work.
+- The ``audio_b64`` lane decodes through the port's copy of ``io/``.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -394,6 +394,31 @@ class BatchingScorer:
                 return
 
 
+def _decode_b64_audio(b64: str, fmt: str, sr: int) -> np.ndarray:
+    """base64 WAV/FLAC bytes -> float32 mono waveform at ``sr``.
+
+    The in-repo decoders are path-based (they exist to serve corpus files),
+    so uploads round-trip through a temp file — negligible next to decode
+    itself, and it keeps one decode implementation.
+    """
+    from audioanalysisdetector_tpu_torch.io.audio import load_audio
+
+    if not isinstance(fmt, str):
+        raise ValueError(f"'format' must be a string, got {type(fmt).__name__}")
+    fmt = fmt.lower().lstrip(".")
+    if fmt not in ("wav", "flac"):
+        raise ValueError(f"unsupported audio format {fmt!r} (wav|flac)")
+    raw = base64.b64decode(b64, validate=True)
+    fd, path = tempfile.mkstemp(suffix="." + fmt)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(raw)
+        y, _ = load_audio(path, sr=sr)
+    finally:
+        os.unlink(path)
+    return y
+
+
 def _fit_rows(y: np.ndarray, n_samples: int) -> np.ndarray:
     """Pad/crop 1-D or 2-D PCM to the service's fixed row length."""
     y = np.atleast_2d(np.asarray(y, dtype=np.float32))
@@ -417,8 +442,10 @@ class ScoreServer:
     - ``POST /v1/score`` — body one of ``{"pcm": [[...]...]}`` (float rows
       at the service sample rate; padded/cropped to the chunk length),
       ``{"pcm_b64": "...", "rows": k}`` (base64 little-endian float32 —
-      the production lane, no per-float JSON parsing). ``audio_b64``
-      answers 400 until the decoders are ported. Response ``{"scores": [...], "labels": [...]}``
+      the production lane, no per-float JSON parsing), or
+      ``{"audio_b64": "...", "format": "wav"|"flac"}`` (an encoded file,
+      decoded on the host and resampled to the service rate). Response
+      ``{"scores": [...], "labels": [...]}``
       with the reference's 0.5 decision threshold
       (reference/ASV_dl_func.py:1491).
     - ``POST /v1/score_raw`` — body is raw little-endian float32 rows
@@ -535,11 +562,8 @@ class ScoreServer:
         if "pcm" in req:
             return _fit_rows(np.asarray(req["pcm"]), self.batcher.n_samples)
         if "audio_b64" in req:
-            raise ValueError(
-                "audio_b64 needs the WAV/FLAC decoders of io/, which "
-                "audioanalysisdetector_tpu_torch has not ported yet; send "
-                "'pcm', 'pcm_b64' or POST /v1/score_raw"
-            )
+            y = _decode_b64_audio(req["audio_b64"], req.get("format", "wav"), self.sr)
+            return _fit_rows(y, self.batcher.n_samples)
         raise KeyError("request needs 'pcm', 'pcm_b64', or 'audio_b64'")
 
     def _rows_from_raw(self, body: bytes, rows_header: str) -> np.ndarray:

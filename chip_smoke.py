@@ -1,37 +1,61 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernel vs plain, e2e, serving.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 It drives ``audioanalysisdetector_tpu_torch``'s main path (wav -> log-mel
-through the hand-written ``wave_mel`` kernel -> CNN-BiLSTM -> score) at the
-flagship model's full width, in six phases, each printing one line:
+through the hand-written mel kernel that ``frontend.mel.mel_route`` names —
+``ct_mel`` (K3) at the parity profile, ``wave_mel`` (K1) at speech ->
+CNN-BiLSTM -> score) at the flagship model's full width, in phases that
+each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles the kernel from ``ops/csrc`` with nvcc;
-3. kernel vs plain: ``wave_mel`` against ``wave_mel_reference`` on the card
-   in both mel profiles (random input at B=8192, a ragged batch of 13,
-   silence), mel power and dB, and both times from CUDA events;
-4. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
-   fed the plain mel path, plus a float64 numpy check of the features;
-5. serving: 8 concurrent HTTP requests through BatchingScorer/ScoreServer;
-6. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2) and
+   ``ops/csrc/ct_mel.cu`` (K3) with nvcc, one process each, in parallel;
+3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
+   (random input at B=8192, a ragged batch of 13, silence), mel power and
+   dB, and both times from CUDA events, in turns;
+4. K3: ``ct_mel`` against ``ct_mel_reference`` and against K1's direct
+   plain chain at parity (random B=8192, ragged 13, silence, length 32032),
+   its log-mel against the plain dB, its time against its plain version and
+   against K1 in turns;
+5. K2: ``fused_mel_from_frames`` against its plain version in float32 and
+   bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, bf16
+   against f32, the times; then the drop-in ``fused_log_mel_spectrogram``
+   path in both dtypes, counting its launches;
+6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
+   fed the plain mel path, plus a float64 numpy check of the features, and
+   a ``torch.profiler`` breakdown of one call (host wall, device kernel
+   time, busy share, the largest kernels);
+7. serving: 8 concurrent PCM requests and one ``audio_b64`` WAV and one FLAC
+   through BatchingScorer/ScoreServer;
+8. score: 64 two-second WAV and FLAC files through
+   ``python -m audioanalysisdetector_tpu_torch score`` in a subprocess,
+   against the direct scorer on the decoded rows;
+9. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
-Every failure raises and exits nonzero; without a CUDA card it exits 1
-before printing any result. Weights are random, from a numpy seed.
+Each path's kernel launches are counted with every counter set to 0 just
+before it and read just after (``run_counted``); a phase fails when the
+kernel its route names did not launch. Every failure raises and exits
+nonzero; without a CUDA card it exits 1 before printing any result. Weights
+are random, from a seed.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,18 +67,30 @@ from audioanalysisdetector_tpu_torch.convert import (
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import (
     MelConfig,
-    log_mel_spectrogram,
+    mel_route,
     melspectrogram,
 )
 from audioanalysisdetector_tpu_torch.frontend.stft import (
     _window_array,
     center_pad,
+    frame_signal,
     n_frames_for,
 )
+from audioanalysisdetector_tpu_torch.io.audio import write_wav
+from audioanalysisdetector_tpu_torch.io.flac import write_flac
+from audioanalysisdetector_tpu_torch.io.native_loader import (
+    load_chunk_batch_native,
+    native_available,
+)
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
-from audioanalysisdetector_tpu_torch.ops import _build
-from audioanalysisdetector_tpu_torch.ops import wave_mel as wm  # the module: counter
-from audioanalysisdetector_tpu_torch.score.e2e import make_mel_cnn_bilstm_scorer
+from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm  # the modules: counters
+from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
+from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
+from audioanalysisdetector_tpu_torch.score.e2e import (
+    init_mel_cnn_bilstm,
+    make_mel_cnn_bilstm_scorer,
+)
 from audioanalysisdetector_tpu_torch.serve.server import (
     BatchingScorer,
     ScoreServer,
@@ -62,21 +98,32 @@ from audioanalysisdetector_tpu_torch.serve.server import (
     default_bucket_ladder,
 )
 
+ROOT = Path(__file__).resolve().parent
 SR, N_SAMPLES, BATCH = 16000, 32000, 8192
+DEVICE = "cuda"
 PROFILES = ("parity", "speech")
-# Mel power, kernel vs plain, relative to each utterance's max power: both
-# are fp32 sums of n_fft products (up to 2048) and of the mel contraction,
-# taken in different orders, so they differ by rounding of order
+# Mel power, kernel vs plain, relative to each utterance's (or frame row's)
+# max power: both are fp32 sums of up to n_fft products and of the mel
+# contraction, taken in different orders (and, for K3, through another
+# factorization of the same DFT), so they differ by rounding of order
 # sqrt(n_fft) * 2^-24 of the largest terms; 1e-4 leaves two decades.
 REL_TOL = 1e-4
 # log-mel, kernel vs plain, in dB: a relative power error e moves dB by
 # 4.3 e, and top_db=80 keeps values within 80 dB of the per-utterance max.
 DB_TOL = 1e-3
+# K2 in bf16 against its f32 result: the median relative error of the mel
+# power (the bound of the JAX package's tests/test_ops_pallas.py:54)
+BF16_MEDIAN_TOL = 0.02
 # scores, scorer (kernel) vs the same model fed the plain mel path
 SCORE_TOL = 1e-4
-# serving vs the direct scorer on the same rows: other batch sizes may pick
-# other cuDNN / cuBLAS algorithms for the model, so rounding differs
+# serving and the CLI vs the direct scorer on the same rows: other batch
+# sizes may pick other cuDNN / cuBLAS algorithms for the model
 SERVE_TOL = 1e-5
+KERNEL_SOURCES = {
+    "wave_mel": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/wave_mel.py:63"),
+    "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
+    "ct_mel": ("ops/csrc/ct_mel.cu", "audioanalysisdetector_tpu/ops/ct_mel.py:154"),
+}
 
 
 def log(phase: str, **kv) -> None:
@@ -94,15 +141,73 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def waves(batch: int, seed: int) -> torch.Tensor:
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return 0.1 * torch.randn((batch, N_SAMPLES), generator=g, device="cuda")
+def in_turns(kern, plain, iters: int = 5) -> dict:
+    """Kernel and plain times, plain-kernel-kernel-plain, so drift hits both alike."""
+    kern(), plain()
+    torch.cuda.synchronize()
+    p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "runs": (k1, k2), "plain_runs": (p1, p2)}
+
+
+def device_breakdown(fn, iters: int = 5, top: int = 8) -> tuple[float, float, list]:
+    """Where one call of ``fn`` spends its time: (host wall ms, summed device
+    kernel ms, the ``top`` kernels as (ms, launches, name)), per call. The
+    kernels come from ``torch.profiler`` over ``iters`` calls; the wall from
+    a separate synchronised loop, so the profiler's own cost stays out of it.
+    Their ratio is the card's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = per_kernel.setdefault(e.name, [0.0, 0])
+            acc[0] += e.device_time_total / 1e3 / iters
+            acc[1] += 1
+    ranked = sorted(((ms, n // iters, name) for name, (ms, n) in per_kernel.items()), reverse=True)
+    return wall, sum(ms for ms, _, _ in ranked), ranked[:top]
+
+
+def run_counted(fn):
+    """(fn(), launches by kernel): every counter is set to 0 just before the
+    call and read just after it, once the card has finished."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def expect_launched(counts: dict, kernel: str, where: str) -> int:
+    if counts[kernel] < 1:
+        raise AssertionError(f"{where}: the routed kernel {kernel} did not launch ({counts})")
+    return counts[kernel]
+
+
+def waves(batch: int, seed: int, n: int = N_SAMPLES) -> torch.Tensor:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return 0.1 * torch.randn((batch, n), generator=g, device=DEVICE)
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got - ref| relative to each utterance's max |ref| (0 for silence)."""
-    peak = ref.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    """max |got - ref| relative to each utterance's (row's) max |ref| (0 for silence)."""
+    peak = ref.abs().amax(dim=tuple(range(1, ref.dim())), keepdim=True).clamp_min(1e-30)
     return float(((got - ref).abs() / peak).max())
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def phase_device() -> str:
@@ -123,24 +228,27 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.load_library("wave_mel")
-    info = _build.build_log["wave_mel"]
-    log("build", kernel="wave_mel", nvcc_s=f"{info['seconds']:.2f}",
-        load_s=f"{time.perf_counter() - t0:.2f}")
-    for line in info["output"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    libs = ("wave_mel", "ct_mel")
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.load_library, libs))
+    for name in libs:
+        info = _build.build_log[name]
+        log("build", source=f"{name}.cu", nvcc_s=f"{info['seconds']:.2f}")
+        for line in info["output"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip(), flush=True)
+    log("build", wall_s=f"{time.perf_counter() - t0:.2f}")
 
 
-def phase_kernel() -> dict:
-    """Kernel vs plain in both profiles; returns the numbers per profile."""
+def phase_k1() -> dict:
+    """K1 vs plain in both profiles; returns the numbers per profile."""
     results = {}
     for profile in PROFILES:
         cfg = MelConfig.for_profile(profile, SR)
         T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
         max_abs, max_rel, max_db = 0.0, 0.0, 0.0
         for case, batch in (("random", BATCH), ("ragged", 13), ("silence", 64)):
-            wav = waves(batch, 1) if case != "silence" else torch.zeros((batch, N_SAMPLES), device="cuda")
+            wav = waves(batch, 1) if case != "silence" else torch.zeros((batch, N_SAMPLES), device=DEVICE)
             padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
             got = wm.wave_mel(padded, cfg, n_frames=T)
             ref = wm.wave_mel_reference(padded, cfg, n_frames=T)
@@ -148,33 +256,149 @@ def phase_kernel() -> dict:
             if got.shape != (batch, T, cfg.n_mels) or not torch.isfinite(got).all():
                 raise AssertionError(f"{profile}/{case}: bad kernel output {tuple(got.shape)}")
             rel = rel_err(got, ref)
-            db_got = log_mel_spectrogram(wav, cfg)  # CUDA route: the kernel
+            db_got = wm.wave_log_mel(wav, cfg)
             db_ref = power_to_db(ref.transpose(1, 2), ref="max", top_db=80.0)
             db = float((db_got - db_ref).abs().max())
             max_abs = max(max_abs, float((got - ref).abs().max()))
             max_rel, max_db = max(max_rel, rel), max(max_db, db)
-            log("kernel", profile=profile, case=case, batch=batch,
+            log("k1", profile=profile, case=case, batch=batch,
                 rel_err=f"{rel:.3e}", db_err=f"{db:.3e}")
             if rel > REL_TOL or db > DB_TOL:
                 raise AssertionError(
-                    f"{profile}/{case}: kernel disagrees with plain (rel {rel:.3e} > "
+                    f"K1 {profile}/{case}: kernel disagrees with plain (rel {rel:.3e} > "
                     f"{REL_TOL} or dB {db:.3e} > {DB_TOL})"
                 )
         wav = waves(BATCH, 2)
         padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
-        kern = lambda: wm.wave_mel(padded, cfg, n_frames=T)  # noqa: E731
-        plain = lambda: wm.wave_mel_reference(padded, cfg, n_frames=T)  # noqa: E731
-        kern(), plain()
-        torch.cuda.synchronize()
-        # in turns, plain-kernel-kernel-plain, so drift hits both alike
-        p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        t = in_turns(lambda: wm.wave_mel(padded, cfg, n_frames=T),
+                     lambda: wm.wave_mel_reference(padded, cfg, n_frames=T))
         flop = 4.0 * BATCH * T * cfg.n_fft * (cfg.n_fft // 2 + 1)
-        log("kernel", profile=profile, batch=BATCH, kernel_ms=f"{ms:.3f}",
-            plain_ms=f"{plain_ms:.3f}", kernel_runs=f"{k1:.3f},{k2:.3f}",
-            plain_runs=f"{p1:.3f},{p2:.3f}", dft_tflop=f"{flop / 1e12:.3f}",
-            kernel_dft_tflops=f"{flop / ms / 1e9:.2f}")
-        results[profile] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs}
+        log("k1", profile=profile, batch=BATCH, kernel_ms=f"{t['ms']:.3f}",
+            plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.3f,%.3f" % t["runs"],
+            plain_runs="%.3f,%.3f" % t["plain_runs"], dft_tflop=f"{flop / 1e12:.3f}",
+            kernel_dft_tflops=f"{flop / t['ms'] / 1e9:.2f}")
+        results[profile] = {**t, "max_abs_err": max_abs}
+        del wav, padded
+        free()
+    return results
+
+
+def phase_k3() -> dict:
+    """K3 vs its plain version and K1's direct plain chain at parity."""
+    cfg = MelConfig.for_profile("parity", SR)
+    max_abs = 0.0
+    for case, batch, n in (("random", BATCH, N_SAMPLES), ("ragged", 13, N_SAMPLES),
+                           ("silence", 64, N_SAMPLES), ("length32032", 64, 32032)):
+        wav = waves(batch, 1, n) if case != "silence" else torch.zeros((batch, n), device=DEVICE)
+        T = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
+        padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
+        got = ctm.ct_mel(padded, cfg, n_frames=T)
+        torch.cuda.synchronize()
+        if got.shape != (batch, T, cfg.n_mels) or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {case}: bad kernel output {tuple(got.shape)}")
+        ref = ctm.ct_mel_reference(padded, cfg, n_frames=T)
+        rel_ct = rel_err(got, ref)
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+        del ref
+        direct = wm.wave_mel_reference(padded, cfg, n_frames=T)
+        rel_direct = rel_err(got, direct)
+        db_ref = power_to_db(direct.transpose(1, 2), ref="max", top_db=80.0)
+        del direct
+        db = float((ctm.ct_log_mel(wav, cfg) - db_ref).abs().max())
+        log("k3", case=case, batch=batch, n=n, rel_err_vs_ct_plain=f"{rel_ct:.3e}",
+            rel_err_vs_direct_plain=f"{rel_direct:.3e}", db_err=f"{db:.3e}")
+        if max(rel_ct, rel_direct) > REL_TOL or db > DB_TOL:
+            raise AssertionError(
+                f"K3 {case}: kernel disagrees with plain (rel {rel_ct:.3e} / {rel_direct:.3e} "
+                f"> {REL_TOL} or dB {db:.3e} > {DB_TOL})"
+            )
+        del wav, padded, got, db_ref
+        free()
+    wav = waves(BATCH, 2)
+    padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
+    T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
+    t = in_turns(k3, lambda: ctm.ct_mel_reference(padded, cfg, n_frames=T))
+    route = in_turns(k3, lambda: wm.wave_mel(padded, cfg, n_frames=T))  # "plain" = K1 here
+    flop = 2.0 * BATCH * T * (17 * 32 * 64 * 2 + 32 * 32 * 64 * 4)
+    log("k3", batch=BATCH, kernel_ms=f"{t['ms']:.3f}", plain_ms=f"{t['plain_ms']:.3f}",
+        kernel_runs="%.3f,%.3f" % t["runs"], plain_runs="%.3f,%.3f" % t["plain_runs"],
+        kernel_tflops=f"{flop / t['ms'] / 1e9:.2f}")
+    log("route", profile="parity", batch=BATCH, ct_mel_ms="%.3f,%.3f" % route["runs"],
+        wave_mel_ms="%.3f,%.3f" % route["plain_runs"], routed=mel_route(cfg))
+    del wav, padded
+    free()
+    return {**t, "max_abs_err": max_abs, "k1_ms": route["plain_ms"]}
+
+
+def phase_k2() -> dict:
+    """K2 vs plain in f32 and bf16, both profiles; then its drop-in path."""
+    results = {}
+    for profile in PROFILES:
+        cfg = MelConfig.for_profile(profile, SR)
+        frames = frame_signal(waves(BATCH, 3), n_fft=cfg.n_fft, hop_length=cfg.hop_length)
+        frames = frames.reshape(-1, cfg.n_fft).contiguous()
+        n_full = frames.shape[0]
+        max_abs = 0.0
+        for case, x in (("frames", frames), ("ragged", frames[:100])):
+            outs = {}
+            for dt in ("float32", "bfloat16"):
+                got = flm.fused_mel_from_frames(x, cfg, compute_dtype=dt)
+                torch.cuda.synchronize()
+                if got.shape != (len(x), cfg.n_mels) or not torch.isfinite(got).all():
+                    raise AssertionError(f"K2 {profile}/{case}/{dt}: bad kernel output")
+                ref = flm.fused_mel_from_frames_reference(x, cfg, compute_dtype=dt)
+                rel = rel_err(got, ref)
+                if dt == "float32":
+                    max_abs = max(max_abs, float((got - ref).abs().max()))
+                outs[dt] = got
+                log("k2", profile=profile, case=case, n=len(x), dtype=dt, rel_err=f"{rel:.3e}")
+                if rel > REL_TOL:
+                    raise AssertionError(f"K2 {profile}/{case}/{dt}: rel err {rel:.3e} > {REL_TOL}")
+                del ref
+            f32 = outs["float32"]
+            med = float(((outs["bfloat16"] - f32).abs() / f32.abs().clamp_min(1e-3)).median())
+            log("k2", profile=profile, case=case, bf16_vs_f32_median_rel=f"{med:.3e}")
+            if med > BF16_MEDIAN_TOL:
+                raise AssertionError(f"K2 {profile}/{case}: bf16 median rel err {med:.3e}")
+            del outs, f32
+            free()
+        for dt in ("float32", "bfloat16"):
+            t = in_turns(lambda: flm.fused_mel_from_frames(frames, cfg, compute_dtype=dt),
+                         lambda: flm.fused_mel_from_frames_reference(frames, cfg, compute_dtype=dt))
+            log("k2", profile=profile, n=n_full, dtype=dt, kernel_ms=f"{t['ms']:.3f}",
+                plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.3f,%.3f" % t["runs"],
+                plain_runs="%.3f,%.3f" % t["plain_runs"])
+            results[(profile, dt)] = {**t, "max_abs_err": max_abs}
+        del frames
+        free()
+
+    # the drop-in path: fused_log_mel_spectrogram at B=8192, both dtypes
+    cfg = MelConfig.for_profile("parity", SR)
+    wav = waves(BATCH, 4)
+    T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
+    db_plain = power_to_db(wm.wave_mel_reference(padded, cfg, n_frames=T).transpose(1, 2),
+                           ref="max", top_db=80.0)
+    del padded
+    launches = 0
+    for dt in ("float32", "bfloat16"):
+        out, counts = run_counted(lambda: flm.fused_log_mel_spectrogram(wav, cfg, compute_dtype=dt))
+        launches += expect_launched(counts, "fused_mel_from_frames", f"K2 drop-in {dt}")
+        if out.shape != (BATCH, cfg.n_mels, T) or not torch.isfinite(out).all():
+            raise AssertionError(f"K2 drop-in {dt}: bad output {tuple(out.shape)}")
+        frames = frame_signal(wav, n_fft=cfg.n_fft, hop_length=cfg.hop_length).reshape(-1, cfg.n_fft)
+        mel = flm.fused_mel_from_frames_reference(frames, cfg, compute_dtype=dt)
+        db_ref = power_to_db(mel.reshape(BATCH, T, -1).transpose(1, 2), ref="max", top_db=80.0)
+        db = float((out - db_ref).abs().max())
+        db_vs_f32_plain = float((out - db_plain).abs().median())
+        log("k2-path", dtype=dt, batch=BATCH, launches=counts["fused_mel_from_frames"],
+            db_err_vs_plain_same_dtype=f"{db:.3e}", median_db_vs_f32_plain=f"{db_vs_f32_plain:.3e}")
+        if db > DB_TOL:
+            raise AssertionError(f"K2 drop-in {dt}: dB err {db:.3e} > {DB_TOL}")
+        del out, frames, mel, db_ref
+        free()
+    results["launches"] = launches
     return results
 
 
@@ -188,32 +412,29 @@ def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     return np.einsum("mf,btf->bmt", cfg.filterbank(), np.abs(spec) ** 2)
 
 
-def phase_e2e() -> tuple[int, dict]:
-    """The scorer in both profiles; returns (kernel launches, utt/s)."""
-    launches, rates = 0, {}
+def phase_e2e() -> tuple[dict, dict]:
+    """The scorer in both profiles; returns (launches by kernel, utt/s)."""
+    launches, rates = {}, {}
     for profile in PROFILES:
         cfg = MelConfig.for_profile(profile, SR)
+        kernel = mel_route(cfg)
         T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
         model = CNNBiLSTMHybrid(T)
         model.load_state_dict(flax_to_torch_cnn_bilstm(random_flax_cnn_bilstm(0, T)))
-        model = model.to("cuda").eval()
+        model = model.to(DEVICE).eval()
         score = make_mel_cnn_bilstm_scorer(model, cfg)
 
         small = np.random.default_rng(3).standard_normal((4, N_SAMPLES)).astype(np.float32) * 0.1
-        feats = melspectrogram(torch.from_numpy(small).cuda(), cfg).double().cpu().numpy()
+        feats = melspectrogram(torch.from_numpy(small).to(DEVICE), cfg).double().cpu().numpy()
         ref64 = numpy_mel64(small, cfg)
         small_rel = float((np.abs(feats - ref64) / ref64.max(axis=(1, 2), keepdims=True)).max())
         if small_rel > REL_TOL:
             raise AssertionError(f"{profile}: mel vs float64 numpy rel err {small_rel:.3e}")
 
         wav = waves(BATCH, 4)
-        wm.launches = 0
-        scores = score(wav)
-        torch.cuda.synchronize()
-        run_launches = wm.launches
-        launches += run_launches
-        if run_launches < 1:
-            raise AssertionError(f"{profile}: the scorer did not launch the wave_mel kernel")
+        scores, counts = run_counted(lambda: score(wav))
+        n = expect_launched(counts, kernel, f"e2e {profile}")
+        launches[kernel] = launches.get(kernel, 0) + n
         if scores.shape != (BATCH,) or not bool(((scores > 0) & (scores < 1)).all()):
             raise AssertionError(f"{profile}: scores not finite in (0, 1)")
         with torch.inference_mode():
@@ -225,10 +446,17 @@ def phase_e2e() -> tuple[int, dict]:
             raise AssertionError(f"{profile}: scores differ from the plain mel path by {diff:.3e}")
         ms = cuda_ms(lambda: score(wav), 3)
         rates[profile] = BATCH / ms * 1e3
-        log("e2e", profile=profile, batch=BATCH, launches=run_launches,
+        log("e2e", profile=profile, batch=BATCH, kernel=kernel, launches=n,
             score_diff_vs_plain=f"{diff:.3e}", mel_vs_numpy64=f"{small_rel:.3e}",
             score_range=f"{float(scores.min()):.4f}..{float(scores.max()):.4f}",
             ms=f"{ms:.3f}", utt_per_s=f"{rates[profile]:.1f}")
+        wall, busy, ranked = device_breakdown(lambda: score(wav))
+        log("breakdown", profile=profile, host_wall_ms=f"{wall:.3f}",
+            device_kernel_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.3f}")
+        for k_ms, k_n, name in ranked:
+            print(f"  {k_ms:8.3f} ms  x{k_n}  {name[:100]}", flush=True)
+        del wav, padded, mel, plain, model
+        free()
     return launches, rates
 
 
@@ -238,9 +466,39 @@ def _post(url: str, body: bytes, headers: dict) -> tuple[int, dict]:
         return resp.status, json.loads(resp.read())
 
 
-def phase_serve() -> int:
-    """8 concurrent requests through the HTTP service; returns launches."""
-    scorer, n_samples = build_mel_scorer(sr=SR, seconds=N_SAMPLES / SR, device="cuda", seed=0)
+def _encoded(y: np.ndarray, fmt: str) -> tuple[bytes, np.ndarray]:
+    """(file bytes, the row the service decodes from them) for one utterance."""
+    from audioanalysisdetector_tpu_torch.io.audio import load_audio
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"u.{fmt}")
+        if fmt == "wav":
+            write_wav(path, y, SR)
+        else:
+            write_flac(path, np.round(np.clip(y, -0.999, 0.999) * 32767).astype(np.int64), SR)
+        decoded, _ = load_audio(path, sr=SR)
+        return Path(path).read_bytes(), decoded
+
+
+def random_checkpoint(directory: str, cfg: MelConfig) -> str:
+    """A state_dict of random weights, the LayerNorm and BatchNorm included,
+    saved where ``--checkpoint`` reads it: with the default init the
+    LayerNorm(1) quirk zeroes the attention and every score is the same, so
+    a comparison of scores would show nothing."""
+    T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    path = os.path.join(directory, "random_cnn_bilstm.pt")
+    torch.save(flax_to_torch_cnn_bilstm(random_flax_cnn_bilstm(0, T)), path)
+    return path
+
+
+def phase_serve() -> dict:
+    """8 concurrent PCM requests, then audio_b64 WAV and FLAC; returns launches."""
+    cfg = MelConfig.for_profile("parity", SR)
+    kernel = mel_route(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        scorer, n_samples = build_mel_scorer(
+            checkpoint=random_checkpoint(d, cfg), sr=SR, seconds=N_SAMPLES / SR, device=DEVICE
+        )
     batcher = BatchingScorer(
         scorer, n_samples=n_samples, max_batch=256, bucket_sizes=default_bucket_ladder(256)
     )
@@ -249,6 +507,7 @@ def phase_serve() -> int:
     server.start_background()
     try:
         base = f"http://127.0.0.1:{server.port}"
+        json_hdr = {"Content-Type": "application/json"}
         rng = np.random.default_rng(5)
         rows = [(rng.standard_normal((1 + 2 * i, n_samples)) * 0.1).astype(np.float32) for i in range(8)]
         results: list = [None] * 8
@@ -257,18 +516,21 @@ def phase_serve() -> int:
             data = rows[i].astype("<f4").tobytes()
             if i % 2 == 0:
                 body = json.dumps({"pcm_b64": base64.b64encode(data).decode(), "rows": len(rows[i])})
-                results[i] = _post(f"{base}/v1/score", body.encode(), {"Content-Type": "application/json"})
+                results[i] = _post(f"{base}/v1/score", body.encode(), json_hdr)
             else:
                 results[i] = _post(f"{base}/v1/score_raw", data, {
                     "Content-Type": "application/octet-stream", "X-Rows": str(len(rows[i]))})
 
-        wm.launches = 0
-        threads = [threading.Thread(target=send, args=(i,)) for i in range(8)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        launches = wm.launches
+        def send_all() -> list:
+            threads = [threading.Thread(target=send, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return threads
+
+        threads, counts = run_counted(send_all)
+        n = expect_launched(counts, kernel, "serve")
         if any(t.is_alive() for t in threads) or any(r is None for r in results):
             raise AssertionError("a serving request did not complete")
         worst = 0.0
@@ -276,39 +538,111 @@ def phase_serve() -> int:
             if status != 200:
                 raise AssertionError(f"request {i}: HTTP {status}")
             worst = max(worst, float(np.abs(np.asarray(payload["scores"]) - scorer(rows[i])).max()))
+
+        # audio_b64: one WAV and one FLAC upload, decoded by the service
+        y = (rng.standard_normal(n_samples) * 0.1).astype(np.float32)
+        for fmt in ("wav", "flac"):
+            data, decoded = _encoded(y, fmt)
+            body = json.dumps({"audio_b64": base64.b64encode(data).decode(), "format": fmt})
+            (status, payload), c = run_counted(lambda: _post(f"{base}/v1/score", body.encode(), json_hdr))
+            n += expect_launched(c, kernel, f"serve audio_b64 {fmt}")
+            if status != 200:
+                raise AssertionError(f"audio_b64 {fmt}: HTTP {status}")
+            diff = float(np.abs(np.asarray(payload["scores"]) - scorer(decoded[None, :n_samples])).max())
+            worst = max(worst, diff)
+            log("serve", lane=f"audio_b64/{fmt}", score=f"{payload['scores'][0]:.6f}",
+                diff_vs_direct=f"{diff:.3e}")
         if worst > SERVE_TOL:
             raise AssertionError(f"served scores differ from the direct scorer by {worst:.3e}")
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
-        if health["platform"] != "cuda":
-            raise AssertionError(f"/healthz says {health['platform']!r}, not 'cuda'")
-        if launches < 1:
-            raise AssertionError("serving did not launch the wave_mel kernel")
-        log("serve", requests=8, rows=sum(len(r) for r in rows), launches=launches,
+        if health["platform"] != DEVICE:
+            raise AssertionError(f"/healthz says {health['platform']!r}, not {DEVICE!r}")
+        log("serve", requests=10, rows=sum(len(r) for r in rows) + 2, kernel=kernel, launches=n,
             max_diff_vs_direct=f"{worst:.3e}", healthz=health["platform"],
             stats=json.dumps(batcher.stats.snapshot(), separators=(",", ":")))
     finally:
         server.close()
-    return launches
+    return {kernel: n}
+
+
+def phase_score() -> dict:
+    """The ``score`` CLI over 64 files in a subprocess; returns its launches."""
+    cfg = MelConfig.for_profile("parity", SR)
+    kernel = mel_route(cfg)
+    rng = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = random_checkpoint(d, cfg)
+        audio = os.path.join(d, "audio")
+        os.mkdir(audio)
+        for i in range(32):
+            y = np.clip(rng.standard_normal(N_SAMPLES) * 0.1, -0.999, 0.999)
+            write_wav(os.path.join(audio, f"u{i:02d}.wav"), y, SR)
+            write_flac(os.path.join(audio, f"v{i:02d}.flac"), np.round(y * 32767).astype(np.int64), SR)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audioanalysisdetector_tpu_torch", "score", audio,
+             "--checkpoint", ckpt, "--device", DEVICE],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+        )
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"score CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+        counts = next(
+            json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
+            if line.startswith('{"kernel_launches"')
+        )
+        n = expect_launched(counts, kernel, "score CLI")
+        files = [line["file"] for line in lines]
+        if len(lines) != 64 or len(set(files)) != 64:
+            raise AssertionError(f"score CLI printed {len(lines)} lines for 64 files")
+        got = np.asarray([line["spoof_score"] for line in lines])
+        if not ((got > 0) & (got < 1)).all():
+            raise AssertionError("score CLI: scores not in (0, 1)")
+        rows = load_chunk_batch_native(files, [0.0] * 64, [N_SAMPLES / SR] * 64, sr=SR)
+        model = init_mel_cnn_bilstm(cfg, N_SAMPLES, checkpoint=ckpt, device=DEVICE)
+    direct = make_mel_cnn_bilstm_scorer(model, cfg)(torch.from_numpy(rows).to(DEVICE)).cpu().numpy()
+    diff = float(np.abs(got - direct).max())
+    log("score", files=64, kernel=kernel, launches=n, native_decoder=native_available(),
+        max_diff_vs_direct=f"{diff:.3e}", score_range=f"{got.min():.4f}..{got.max():.4f}",
+        wall_s=f"{wall:.1f}")
+    if diff > SERVE_TOL:
+        raise AssertionError(f"score CLI differs from the direct scorer by {diff:.3e}")
+    return {kernel: n}
 
 
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    kern = phase_kernel()
-    launches, _ = phase_e2e()
-    launches += phase_serve()
-    print(json.dumps({"kernels": [{
-        "name": "wave_mel",
-        "route": "cuda",
-        "source": "audioanalysisdetector_tpu_torch/ops/csrc/wave_mel.cu",
-        "replaces": "audioanalysisdetector_tpu/ops/wave_mel.py:63",
-        "launches": launches,
-        "max_abs_err": kern["parity"]["max_abs_err"],
-        "ms": kern["parity"]["ms"],
-        "plain_ms": kern["parity"]["plain_ms"],
-    }]}), flush=True)
+    k1 = phase_k1()
+    k3 = phase_k3()
+    k2 = phase_k2()
+    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"]}
+    for part in (phase_e2e()[0], phase_serve(), phase_score()):
+        for name, n in part.items():
+            launches[name] += n
+    timed = {
+        "wave_mel": k1["parity"],
+        "fused_mel_from_frames": k2[("parity", "float32")],
+        "ct_mel": k3,
+    }
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        if launches[name] < 1:
+            raise AssertionError(f"no main path launched {name}: {launches}")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"audioanalysisdetector_tpu_torch/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": timed[name]["max_abs_err"],
+            "ms": timed[name]["ms"],
+            "plain_ms": timed[name]["plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     log("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

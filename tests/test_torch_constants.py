@@ -78,7 +78,11 @@ def test_port_imports_without_jax():
         "import audioanalysisdetector_tpu_torch.models, audioanalysisdetector_tpu_torch.score\n"
         "import audioanalysisdetector_tpu_torch.serve, audioanalysisdetector_tpu_torch.convert\n"
         "import audioanalysisdetector_tpu_torch.cli.main, audioanalysisdetector_tpu_torch.entry\n"
-        "import audioanalysisdetector_tpu_torch.__main__\n"
+        "import audioanalysisdetector_tpu_torch.__main__, audioanalysisdetector_tpu_torch.io\n"
+        "import audioanalysisdetector_tpu_torch.score.streaming\n"
+        "import audioanalysisdetector_tpu_torch.ops.ct_mel, audioanalysisdetector_tpu_torch.ops.fused_logmel\n"
+        "from audioanalysisdetector_tpu_torch.cli.main import build_parser\n"
+        "build_parser().parse_args(['score', '.', '--allow-random'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'audioanalysisdetector_tpu')]\n"
         "assert not bad, bad\n"

@@ -2,8 +2,8 @@
 
 wav -> log-mel -> CNN-BiLSTM -> score through JAX ``make_mel_cnn_bilstm_scorer``
 and the port's scorer with the same converted weights; then the port's
-``ScoreServer`` answering the ``pcm``, ``pcm_b64`` and ``/v1/score_raw``
-lanes, and refusing ``audio_b64`` until the decoders are ported.
+``ScoreServer`` answering the ``pcm``, ``pcm_b64``, ``audio_b64`` and
+``/v1/score_raw`` lanes.
 """
 
 import base64
@@ -26,6 +26,7 @@ from audioanalysisdetector_tpu_torch.cli.main import main as cli_main
 from audioanalysisdetector_tpu_torch.convert import flax_to_torch_cnn_bilstm, random_flax_cnn_bilstm
 from audioanalysisdetector_tpu_torch.entry import entry
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+from audioanalysisdetector_tpu_torch.io.audio import load_audio, write_wav
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.score.e2e import init_mel_cnn_bilstm, make_mel_cnn_bilstm_scorer
 from audioanalysisdetector_tpu_torch.serve.server import (
@@ -102,7 +103,7 @@ def _post(url, body, headers):
         return e.code, json.loads(e.read())
 
 
-def test_server_lanes_match_direct_scorer():
+def test_server_lanes_match_direct_scorer(tmp_path):
     scorer, n_samples = build_mel_scorer(mel_profile="speech", device="cpu", seed=1)
     assert scorer.row_multiple == 1 and scorer.platform == "cpu"
     batcher = BatchingScorer(scorer, n_samples=n_samples, max_batch=8, bucket_sizes=default_bucket_ladder(8))
@@ -129,8 +130,14 @@ def test_server_lanes_match_direct_scorer():
         assert status == 200
         np.testing.assert_allclose(out["scores"], direct[1:], rtol=0, atol=SCORE_TOL)
 
-        status, out = _post(f"{base}/v1/score", json.dumps({"audio_b64": "UklGRg==", "format": "wav"}).encode(), json_hdr)
-        assert status == 400 and "not ported" in out["error"]
+        wav_path = Path(tmp_path) / "row0.wav"
+        write_wav(str(wav_path), rows[0], 16000)
+        audio = base64.b64encode(wav_path.read_bytes()).decode()
+        status, out = _post(f"{base}/v1/score", json.dumps({"audio_b64": audio, "format": "wav"}).encode(), json_hdr)
+        assert status == 200  # the io/ decoders are ported: the lane answers
+        np.testing.assert_allclose(out["scores"], scorer(load_audio(str(wav_path), sr=16000)[0][None]), rtol=0, atol=SCORE_TOL)
+        status, out = _post(f"{base}/v1/score", json.dumps({"audio_b64": audio, "format": "ogg"}).encode(), json_hdr)
+        assert status == 400 and "unsupported audio format" in out["error"]
 
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
