@@ -9,8 +9,10 @@ bf16 and every product and sum stays fp32; the mel matrix stays fp32.
 
 The kernel is K1's CUDA core (``ops/csrc/wave_mel.cu``) through its second
 entry point ``frames_mel_launch``: a frame matrix is K1's row addressing
-with one frame per row at stride n_fft, and the core is templated on the
-frame/basis element type. ``fused_mel_from_frames`` launches it on a CUDA
+with one frame per row, and the core is templated on the frame element
+type: float32 frames take K1's three-part bf16 bases (six tensor-core
+products), bfloat16 frames the first parts alone (one product, exactly this
+function's bf16 semantics). ``fused_mel_from_frames`` launches it on a CUDA
 tensor and runs ``fused_mel_from_frames_reference``, the plain PyTorch
 version, on a CPU tensor. There is no fallback.
 """
@@ -26,7 +28,7 @@ from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import frame_signal
 from audioanalysisdetector_tpu_torch.ops import _build
-from audioanalysisdetector_tpu_torch.ops.wave_mel import MAX_MELS, _operands_on
+from audioanalysisdetector_tpu_torch.ops.wave_mel import MAX_MELS, _kernel_operands, _operands_on
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,7 +47,7 @@ def _bases_on(cfg: MelConfig, device: torch.device, dtype: torch.dtype) -> tuple
 @lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load_library("wave_mel").frames_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,19 +98,25 @@ def fused_mel_from_frames(
     if n >= 2**31:
         raise ValueError(f"{n} frame rows overflow the kernel's int row index")
     x = frames.to(dtype).contiguous()
-    cos_b, sin_b, mel_p = _bases_on(cfg, frames.device, dtype)
+    if dtype == torch.bfloat16 and (x.data_ptr() % 16 or cfg.n_fft % 8):
+        # bf16 rows are staged in 16-byte copies: a fresh (aligned) copy,
+        # rows zero-extended to a multiple of 8 elements
+        aligned = x.new_zeros((n, -(-cfg.n_fft // 8) * 8))
+        aligned[:, : cfg.n_fft] = x
+        x = aligned
+    bases, mel, n_tiles = _kernel_operands(cfg, frames.device, dtype == torch.float32)
     out = torch.empty((n, cfg.n_mels), dtype=torch.float32, device=frames.device)
     fn = _kernel()
     with torch.cuda.device(frames.device):
         rc = fn(
             x.data_ptr(),
-            cos_b.data_ptr(),
-            sin_b.data_ptr(),
-            mel_p.data_ptr(),
+            bases.data_ptr(),
+            mel.data_ptr(),
             out.data_ptr(),
             n,
+            x.shape[1],
             cfg.n_fft,
-            cos_b.shape[1],
+            n_tiles,
             cfg.n_mels,
             int(dtype == torch.bfloat16),
             torch.cuda.current_stream(frames.device).cuda_stream,

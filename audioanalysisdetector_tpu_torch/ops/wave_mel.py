@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``ops/wave_mel.py::wave_mel``
 power ``(B, n_frames, n_mels)``. Frame rows are read straight from the
 padded waveform at ``u * n_pad + f * hop``, so no frame matrix ever exists
 in device memory; the windowed-DFT products, |X|^2 and the mel projection
-all happen on chip. The CUDA source is ``ops/csrc/wave_mel.cu`` (design and
-bounds in its header note).
+all happen on chip, the products on the tensor cores with float32 operands
+split into three bf16 parts. The CUDA source is ``ops/csrc/wave_mel.cu`` (design and bounds in
+its header note); ``_kernel_operands`` builds the operands it reads.
 
 ``wave_mel`` launches the kernel on a CUDA tensor and runs
 ``wave_mel_reference``, the plain PyTorch version of the same function, on
@@ -28,8 +29,10 @@ from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import _rdft_bases, center_pad, n_frames_for
 from audioanalysisdetector_tpu_torch.ops import _build
 
-K_TILE = 64  # frequency bins per tile; must equal KT in csrc/wave_mel.cu
+K_TILE = 64  # bin padding of the plain version's bases (the JAX kernel's K_TILE)
 MAX_MELS = 128  # the kernel keeps at most 128 mel accumulators per row
+N_TILE = 64  # live bins per kernel tile; must equal NB in csrc/wave_mel.cu
+K_CHUNK = 32  # samples per kernel stage; must equal KC in csrc/wave_mel.cu
 
 # Kernel launches made by ``wave_mel`` in this process. Only the wrapper's
 # CUDA branch adds to it, one per launch, so a run can show that its main
@@ -57,18 +60,96 @@ def _operands(cfg: MelConfig, k_pad: int):
 
 @lru_cache(maxsize=None)
 def _operands_on(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The padded bases and mel matrix, uploaded once per (config, device).
-
-    At n_fft 2048 the two bases are 17.8 MB together and stay resident in
-    the H100's 50 MB L2 while every block of a launch reads them."""
+    """The plain version's float32 bases and mel matrix over every bin,
+    uploaded once per (config, device); the kernel reads
+    ``_kernel_operands``."""
     k_pad = _round_up(cfg.n_fft // 2 + 1, K_TILE)
     return tuple(torch.from_numpy(a).to(device) for a in _operands(cfg, k_pad))
+
+
+def live_span(cfg: MelConfig) -> tuple[int, int]:
+    """``[k_lo, k_hi)``: the first and one past the last bin whose mel column
+    is not all zero. The kernel computes only these bins."""
+    nz = np.flatnonzero((cfg.filterbank() != 0).any(axis=0))
+    if nz.size == 0:
+        return 0, 1
+    return int(nz[0]), int(nz[-1]) + 1
+
+
+def _core_matrices(m: np.ndarray) -> np.ndarray:
+    """``(..., N, K)`` -> the wgmma K-major layout without swizzle: 8 x 8
+    core matrices (8 N rows of 8 contiguous K values), K-fastest within
+    each 8-row group, the groups one after another."""
+    *lead, n, k = m.shape
+    return m.reshape(*lead, n // 8, 8, k // 8, 8).swapaxes(-3, -2).reshape(*lead, n * k)
+
+
+def _bf16_parts(a: np.ndarray, n: int) -> torch.Tensor:
+    """``a`` as ``n`` bf16 parts, each the rounding of what the ones before
+    leave (three hold a float32 exactly), stacked on a new axis before the
+    last."""
+    rest = torch.from_numpy(np.ascontiguousarray(a))
+    parts = []
+    for _ in range(n):
+        parts.append(rest.to(torch.bfloat16))
+        rest = rest - parts[-1].float()
+    return torch.stack(parts, dim=-2)
+
+
+def _mel_cols(n_mels: int) -> int:
+    """Mel accumulator columns: 64 up to 64 mels, else 128 (csrc/wave_mel.cu's MC)."""
+    return 64 if n_mels <= 64 else MAX_MELS
+
+
+@lru_cache(maxsize=None)
+def _kernel_operands(
+    cfg: MelConfig, device: torch.device, split: bool = True
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The kernel's operands, once per (config, device, split):
+    ``(bases, mel, n_tiles)``.
+
+    The live span is cut into ``n_tiles`` tiles of ``N_TILE`` bins (bins
+    past the spectrum are zero). ``bases`` is ``(n_tiles, n_chunks, parts,
+    2 * N_TILE * K_CHUNK)`` bf16: for each tile and chunk of ``K_CHUNK``
+    samples, the windowed cos and sin columns of the tile's bins side by
+    side (128 columns), transposed to K-major core matrices, in three bf16
+    parts that sum to the float32 basis exactly (with ``split``; the first
+    part alone otherwise). ``mel`` is ``(n_tiles, N_TILE * cols +
+    cols)`` float32 with ``cols = _mel_cols(n_mels)``: the filterbank over
+    the tile's bins ``(N_TILE, cols)``, then for each filter the tile-local
+    ``[lo, hi)`` of its nonzero bins packed as the uint32 ``lo | hi << 16``
+    (bit-cast; empty for the padding columns)."""
+    cos_b, sin_b = _rdft_bases(cfg.n_fft, cfg.window, cfg.win_length or cfg.n_fft)
+    n_freq = cos_b.shape[1]
+    k_lo, k_hi = live_span(cfg)
+    n_tiles = -(-(k_hi - k_lo) // N_TILE)
+    n_chunks = -(-cfg.n_fft // K_CHUNK)
+    bins = k_lo + np.arange(n_tiles * N_TILE)
+    live = bins < n_freq
+    cs = np.zeros((2, n_chunks * K_CHUNK, n_tiles * N_TILE), np.float32)
+    cs[0][: cfg.n_fft, live] = cos_b[:, bins[live]]
+    cs[1][: cfg.n_fft, live] = sin_b[:, bins[live]]
+    # (cos/sin, chunk, k, tile, bin) -> (tile, chunk, [cos bins | sin bins], k)
+    b = cs.reshape(2, n_chunks, K_CHUNK, n_tiles, N_TILE).transpose(3, 1, 0, 4, 2)
+    b = _core_matrices(b.reshape(n_tiles, n_chunks, 2 * N_TILE, K_CHUNK))
+
+    cols = _mel_cols(cfg.n_mels)
+    weights = np.zeros((n_tiles, N_TILE, cols), np.float32)
+    weights.reshape(-1, cols)[live, : cfg.n_mels] = cfg.filterbank().T[bins[live]]
+    nz = weights != 0
+    any_nz = nz.any(axis=1)  # (tile, filter)
+    lo = np.where(any_nz, nz.argmax(axis=1), 0)
+    hi = np.where(any_nz, N_TILE - nz[:, ::-1].argmax(axis=1), 0)
+    mel = np.concatenate(
+        [weights.reshape(n_tiles, -1), (lo | hi << 16).astype(np.uint32).view(np.float32)], axis=1
+    )
+    return _bf16_parts(b, 3 if split else 1).to(device), torch.from_numpy(mel).to(device), n_tiles
 
 
 @lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load_library("wave_mel").wave_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
         ctypes.c_int
     ] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -123,22 +204,21 @@ def wave_mel(
     B, n_pad = wav_padded.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
-    cos_p, sin_p, mel_p = _operands_on(cfg, wav_padded.device)
+    bases, mel, n_tiles = _kernel_operands(cfg, wav_padded.device)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
     fn = _kernel()
     with torch.cuda.device(wav_padded.device):
         rc = fn(
             wav_padded.data_ptr(),
-            cos_p.data_ptr(),
-            sin_p.data_ptr(),
-            mel_p.data_ptr(),
+            bases.data_ptr(),
+            mel.data_ptr(),
             out.data_ptr(),
             B * n_frames,
             n_frames,
             n_pad,
-            cfg.n_fft,
             cfg.hop_length,
-            cos_p.shape[1],
+            cfg.n_fft,
+            n_tiles,
             cfg.n_mels,
             torch.cuda.current_stream(wav_padded.device).cuda_stream,
         )

@@ -13,18 +13,24 @@ each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2) and
-   ``ops/csrc/ct_mel.cu`` (K3) with nvcc, one process each, in parallel;
+   ``ops/csrc/ct_mel.cu`` (K3) with nvcc, one process each, in parallel,
+   and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+   (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
-   (random input at B=8192, a ragged batch of 13, silence), mel power and
-   dB, and both times from CUDA events, in turns;
+   (random input at B=8192, a ragged batch of 13, silence, length 32001,
+   whose rows are not 16-byte aligned), at n_fft 400 / hop 160 (the 25 ms
+   / 10 ms speech framing, a sample tail past the kernel's 32-sample
+   stages), at n_fft 64 (fewer stages than the ring is deep) and with 128
+   mels, mel power and dB; then both times from CUDA events, in turns;
 4. K3: ``ct_mel`` against ``ct_mel_reference`` and against K1's direct
    plain chain at parity (random B=8192, ragged 13, silence, length 32032),
    its log-mel against the plain dB, its time against its plain version and
    against K1 in turns;
 5. K2: ``fused_mel_from_frames`` against its plain version in float32 and
-   bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, bf16
-   against f32, the times; then the drop-in ``fused_log_mel_spectrogram``
-   path in both dtypes, counting its launches;
+   bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, with
+   128 mels and at n_fft 100 off alignment, bf16 against f32, the times;
+   then the drop-in
+   ``fused_log_mel_spectrogram`` path in both dtypes, counting its launches;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -226,6 +232,15 @@ def phase_device() -> str:
     return smi
 
 
+def hgmma_count(library: str) -> int:
+    """Tensor-core (wgmma) instructions in a built library's SASS."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", library], capture_output=True, text=True, check=True
+    ).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = ("wave_mel", "ct_mel")
@@ -237,18 +252,33 @@ def phase_build() -> None:
         for line in info["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip(), flush=True)
+    n = hgmma_count(_build.build_log["wave_mel"]["path"])
+    log("build", source="wave_mel.cu", hgmma=n)
+    if n == 0:
+        raise AssertionError("wave_mel.cu built without tensor-core (HGMMA) instructions")
     log("build", wall_s=f"{time.perf_counter() - t0:.2f}")
 
 
+K1_CASES = (("random", BATCH, N_SAMPLES), ("ragged", 13, N_SAMPLES), ("silence", 64, N_SAMPLES),
+            ("length32001", 64, 32001))
+
+
 def phase_k1() -> dict:
-    """K1 vs plain in both profiles; returns the numbers per profile."""
+    """K1 vs plain in both profiles, at n_fft 400 and 64 and with 128 mels;
+    returns the numbers (and times) of the two profiles."""
     results = {}
-    for profile in PROFILES:
-        cfg = MelConfig.for_profile(profile, SR)
-        T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    configs = [(p, MelConfig.for_profile(p, SR), K1_CASES) for p in PROFILES]
+    configs.append(("n_fft400", MelConfig(sr=SR, n_fft=400, hop_length=160),
+                    (("random", 64, N_SAMPLES), ("length32001", 13, 32001))))
+    configs.append(("mels128", MelConfig.for_speech(SR, n_mels=128), (("ragged", 13, N_SAMPLES),)))
+    # fewer 32-sample stages than the ring is deep
+    configs.append(("n_fft64", MelConfig(sr=SR, n_fft=64, hop_length=32, n_mels=16),
+                    (("ragged", 13, N_SAMPLES),)))
+    for profile, cfg, cases in configs:
         max_abs, max_rel, max_db = 0.0, 0.0, 0.0
-        for case, batch in (("random", BATCH), ("ragged", 13), ("silence", 64)):
-            wav = waves(batch, 1) if case != "silence" else torch.zeros((batch, N_SAMPLES), device=DEVICE)
+        for case, batch, n in cases:
+            T = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
+            wav = waves(batch, 1, n) if case != "silence" else torch.zeros((batch, n), device=DEVICE)
             padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
             got = wm.wave_mel(padded, cfg, n_frames=T)
             ref = wm.wave_mel_reference(padded, cfg, n_frames=T)
@@ -261,13 +291,16 @@ def phase_k1() -> dict:
             db = float((db_got - db_ref).abs().max())
             max_abs = max(max_abs, float((got - ref).abs().max()))
             max_rel, max_db = max(max_rel, rel), max(max_db, db)
-            log("k1", profile=profile, case=case, batch=batch,
+            log("k1", profile=profile, case=case, batch=batch, n=n,
                 rel_err=f"{rel:.3e}", db_err=f"{db:.3e}")
             if rel > REL_TOL or db > DB_TOL:
                 raise AssertionError(
                     f"K1 {profile}/{case}: kernel disagrees with plain (rel {rel:.3e} > "
                     f"{REL_TOL} or dB {db:.3e} > {DB_TOL})"
                 )
+        if profile not in PROFILES:
+            continue
+        T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
         wav = waves(BATCH, 2)
         padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
         t = in_turns(lambda: wm.wave_mel(padded, cfg, n_frames=T),
@@ -372,6 +405,21 @@ def phase_k2() -> dict:
             results[(profile, dt)] = {**t, "max_abs_err": max_abs}
         del frames
         free()
+
+    # 128 mels (the 128-column mel accumulator), and n_fft 100 from a view
+    # one float off 16-byte alignment (4-byte copies in f32; bf16 rows of
+    # 100 are copied to aligned rows of 104)
+    for name, cfg, shift in (("mels128", MelConfig.for_speech(SR, n_mels=128), 0),
+                             ("n_fft100", MelConfig(sr=SR, n_fft=100, hop_length=50, n_mels=16), 1)):
+        flat = frame_signal(waves(13, 3), n_fft=cfg.n_fft, hop_length=cfg.hop_length).reshape(-1)
+        n = flat.numel() // cfg.n_fft - 1
+        frames = flat[shift : shift + n * cfg.n_fft].view(n, cfg.n_fft)
+        for dt in ("float32", "bfloat16"):
+            got = flm.fused_mel_from_frames(frames, cfg, compute_dtype=dt)
+            rel = rel_err(got, flm.fused_mel_from_frames_reference(frames, cfg, compute_dtype=dt))
+            log("k2", profile=name, n=n, dtype=dt, rel_err=f"{rel:.3e}")
+            if got.shape != (n, cfg.n_mels) or rel > REL_TOL:
+                raise AssertionError(f"K2 {name}/{dt}: rel err {rel:.3e} > {REL_TOL}")
 
     # the drop-in path: fused_log_mel_spectrogram at B=8192, both dtypes
     cfg = MelConfig.for_profile("parity", SR)
