@@ -1,235 +1,249 @@
-// Mel power through a Cooley-Tukey factored 2048-point DFT, for Hopper (sm_90a).
+// Mel power through a packed real 2048-point FFT, one warp per frame row, for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel ops/ct_mel.py (function
-// _ct_mel_parts, body lines 195-244): center-padded waveforms
-// (B, n_pad) -> mel power (B * n_frames, n_mels). Each frame row r =
-// u * n_frames + f is read straight from the waveform at u * n_pad + f * hop
-// and windowed; with n = n1 + 64 n2 and k = k2 + 32 k1 its DFT is
+// _ct_mel_parts, pallas_call at line 246): center-padded waveforms
+// (B, n_pad) -> mel power (B * n_frames, n_mels). Frame row r = u * T + f
+// is x[n] = wav[u * n_pad + f * hop + n] * win[n], n = 0..2047, and
+// out[r, m] = sum_k |X[k]|^2 mel[k, m] over bins k = 0..1024 of its DFT X.
 //
-//   G[k2, n1] = sum_n2 E32[n2, k2] x[n1 + 64 n2]           (stage A, 32-point)
-//   B[k2, n1] = G[k2, n1] t[n1, k2]                        (twiddle)
-//   X[k2, k1] = sum_n1 B[k2, n1] E64[n1, k1]               (stage C, 64-point)
+// Bound. Per frame a real FFT needs 2.5 N log2 N + N (window) + 3 (N/2 + 1)
+// (|X|^2) + 2 nnz(mel) operations: 65.4k at parity (1,994 nonzero mel
+// weights). At B = 8192 two-second utterances (516,096 frames) that is 33.8
+// GFLOP, 0.50 ms at the card's 67 TFLOP/s of fp32; the bytes (1.116 GB of
+// padded waveform read once, 132 MB written) take 0.37 ms at 3.35 TB/s. So
+// operations bound it, at 0.50 ms. This design does about 65k flops per frame
+// (two passes of 32 x 32-point radix-2 FFTs 33.5k, twiddles 6.1k, the real
+// split and |X|^2 19.5k, window and mel 6k), all fp32 outside the tensor
+// cores: at this count the FFT is cheap, and fp32 keeps the dB check.
 //
-// and out[r, m] = sum_k |X[k]|^2 mel[k, m] over bins k = 0..1024.
-//
-// Design. A block walks groups of FB = 2 frame rows (a grid-stride loop, so
-// the 17 KB E64 table is staged into shared memory once per block, not once
-// per group). Per group:
-//  1. the two windowed frames go to shared memory;
-//  2. stage A: one thread per (frame, n1) computes G for k2 = 0..16 only
-//     (the input is real, so G[32 - k2] = conj G[k2]) with fp32 FMAs whose
-//     E32 operand is an immediate of constant memory (fully unrolled: no
-//     load per FMA), applies the twiddle and writes B for all 32 k2;
-//  3. stage C is a small complex GEMM, (64 rows = frame x k2) x 64 n1 x
-//     (32 bins k1), each thread 4 rows x 4 bins in registers from shared
-//     memory; bins k1 = 0..31 give k = 0..1023 and one warp per frame adds
-//     the Nyquist bin 1024 with a shuffle reduction. Only half the spectrum
-//     is computed (the other half is its mirror);
-//  4. |X|^2 goes to shared memory and each (frame, mel) thread sums its
-//     filter's nonzero span [lo, hi) of bins, read from the dense filterbank.
-// The ragged last group is masked, so any batch size is taken.
-//
-// Bounds. Per frame: stage A 17 x 32 x 2 = 1,088 FMAs per n1 (70k), stage C
-// 32 x 32 x 64 x 4 = 262k FMAs, the mel spans ~2k FMAs: about 0.34M FMAs, a
-// fifth of the direct DFT's 2048 x 1025 x 2 = 4.2M (ops/csrc/wave_mel.cu).
-// At 8192 two-second utterances (516,096 frames) that is ~0.35 TFLOP of fp32
-// FMA work outside the tensor cores; stage C issues one 32-bit shared load
-// per 4 FMAs, so the FMA pipe and shared-memory bandwidth bound it together.
-// The waveform is read once per frame (4x per sample at hop 512, mostly from
-// L2). Tensor-core stage C and an FFT-style split of the 64-point stage are
-// left for later work.
+// Design (W_N = exp(-2 pi i / N)):
+//  1. One warp per frame row; a block holds 8 warps on 8 consecutive rows,
+//     so the 4x overlap of frames at hop 512 hits in L1 / L2. A warp past
+//     the last row exits (there is no block barrier).
+//  2. Pack: z[m] = x[2m] + i x[2m+1], m = 0..1023. Lane a loads z[a + 32 b],
+//     b = 0..31, as a float2 at sample 2a + 64b (each b is one 256-byte warp
+//     load) and multiplies by the window pair. float2 loads need 8-byte-
+//     aligned rows: the launcher picks the 4-byte-load instance otherwise
+//     (an odd n_pad, e.g. 32001 samples + 2048 of padding).
+//  3. Pass 1: each lane runs a 32-point radix-2 decimation-in-frequency FFT
+//     over b in registers (fully unrolled; register j ends up holding bin
+//     c = brev5(j)), giving Y[a, c], then multiplies by W_1024^(a c) from a
+//     host table.
+//  4. Transpose through a per-warp shared tile [32][33] of float2 (padded
+//     against bank conflicts), with __syncwarp only: lane c holds Y[a, c].
+//  5. Pass 2: the same FFT over a gives Z[c + 32 d] = FFT_1024(z), register
+//     j holding d = brev5(j).
+//  6. Real split, k = c + 32 d: X[k] = (Z[k] + conj Z[1024-k]) / 2
+//     - i W_2048^k (Z[k] - conj Z[1024-k]) / 2 (it also gives X[0]), and
+//     X[1024] = Re Z[0] - Im Z[0]. The partner of k (c != 0) sits in lane
+//     32 - c, register 31 - j (a shuffle); lane 0's partner is its own
+//     register brev5((32 - d) mod 32). W_2048^k comes from a host table.
+//  7. |X|^2 goes to a per-warp row of 1025 floats (the tile's space); lane l
+//     sums filters m and n_mels-1-m for m = l, l+32, ... below ceil(n_mels/2)
+//     over their nonzero spans [lo, hi) (the middle filter of an odd count
+//     once). The host lays the weights out lane by lane: filter m's weight
+//     for bin k at row row[m] + k - lo[m], column = the lane that sums it,
+//     with one row base for the filters the lanes take together, so each
+//     step's warp load is one 128-byte line.
+// Every twiddle comes from float64 on the host or from the W_32 literals
+// below; no sincos runs on the card.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int N1 = 64;          // in-chunk offset, stage-C length
-constexpr int N2 = 32;          // chunk index, stage-A length
-constexpr int NFFT = N1 * N2;   // 2048
-constexpr int KH = N2 / 2 + 1;  // stage-A bins computed (k2 = 0..16)
-constexpr int K1C = 33;         // E64 columns staged (k1 = 0..32)
-constexpr int FB = 2;           // frame rows per group
-constexpr int THREADS = 128;    // == FB * N1 (stage A) == 16 x 8 (stage C)
-constexpr int ROWS = FB * N2;   // stage-C rows (frame, k2)
-constexpr int BS = N1 + 1;      // padded row stride of B
-constexpr int PW = 36;          // power-tile stride per k1 (conflict-free stores)
+constexpr int NFFT = 2048;
+constexpr int NH = NFFT / 2;       // 1024: the packed complex length
+constexpr int R = 32;              // radix of both passes == lanes == registers
+constexpr int WARPS = 8;           // frame rows per block
+constexpr int THREADS = WARPS * 32;
+constexpr int TS = R + 1;          // padded row stride of the transpose tile (float2)
+constexpr unsigned FULL = 0xffffffffu;
 
-__constant__ float c_e32[2][N2][KH];  // [cos|-sin][n2][k2]
+// cos(pi e / 16) = sin(pi (8 - e) / 16), e = 0..8, float32 rounded from float64
+// (tests/test_torch_ct_fft.py reads these literals and checks them bitwise)
+__host__ __device__ constexpr float cos_q(int e) {
+  return e == 0 ? 1.0f : e == 1 ? 0.98078525f : e == 2 ? 0.9238795f : e == 3 ? 0.8314696f
+       : e == 4 ? 0.70710677f : e == 5 ? 0.55557024f : e == 6 ? 0.38268343f
+       : e == 7 ? 0.19509032f : 0.0f;
+}
 
-__global__ void __launch_bounds__(THREADS, 3)
-ct_mel_kernel(const float* __restrict__ wav, const float* __restrict__ e64,
-              const float* __restrict__ tw, const float* __restrict__ win,
-              const float* __restrict__ mel, const int* __restrict__ mel_lo,
-              const int* __restrict__ mel_hi, float* __restrict__ out, int n_rows,
-              int n_frames, long long n_pad, int hop, int n_mels) {
-  extern __shared__ float smem[];
-  float* xs = smem;               // [FB][NFFT] windowed frames, then |X|^2 at k1 * PW + k2
-  float* br = xs + FB * NFFT;     // [ROWS][BS] B real
-  float* bi = br + ROWS * BS;     // [ROWS][BS] B imaginary
-  float* ec = bi + ROWS * BS;     // [N1][K1C]  E64 real
-  float* es = ec + N1 * K1C;      // [N1][K1C]  E64 imaginary
+// W_32^e = cos(2 pi e / 32) - i sin(2 pi e / 32), e = 0..15 (the exponents of the DIF stages)
+__host__ __device__ constexpr float w32r(int e) { return e <= 8 ? cos_q(e) : -cos_q(16 - e); }
+__host__ __device__ constexpr float w32i(int e) { return e <= 8 ? -cos_q(8 - e) : -cos_q(e - 8); }
 
-  const int tid = threadIdx.x;
-  for (int e = tid; e < N1 * K1C; e += THREADS) {
-    ec[e] = e64[e];
-    es[e] = e64[N1 * K1C + e];
+__host__ __device__ constexpr int brev5(int j) {
+  return ((j & 1) << 4) | ((j & 2) << 2) | (j & 4) | ((j & 8) >> 2) | ((j & 16) >> 4);
+}
+
+// One radix-2 DIF stage of span L over the 32 registers.
+template <int L>
+__device__ __forceinline__ void dif_stage(float (&re)[R], float (&im)[R]) {
+#pragma unroll
+  for (int base = 0; base < R; base += L)
+#pragma unroll
+    for (int j = 0; j < L / 2; ++j) {
+      const int p = base + j, q = p + L / 2, e = j * (R / L);
+      const float dr = re[p] - re[q], di = im[p] - im[q];
+      re[p] += re[q];
+      im[p] += im[q];
+      if (e == 0) {
+        re[q] = dr;
+        im[q] = di;
+      } else if (e == 8) {  // times -i
+        re[q] = di;
+        im[q] = -dr;
+      } else {
+        re[q] = dr * w32r(e) - di * w32i(e);
+        im[q] = dr * w32i(e) + di * w32r(e);
+      }
+    }
+}
+
+// In-register 32-point FFT: natural order in, register j = bin brev5(j) out.
+__device__ __forceinline__ void fft32(float (&re)[R], float (&im)[R]) {
+  dif_stage<32>(re, im);
+  dif_stage<16>(re, im);
+  dif_stage<8>(re, im);
+  dif_stage<4>(re, im);
+  dif_stage<2>(re, im);
+}
+
+// Filter m's power, summed by `lane`: its weight for bin k in [lo, hi) sits at
+// melw[(row + k - lo) * 32 + lane], so a warp's loads of one step share a line.
+__device__ __forceinline__ float filter_sum(const float* pw, const float* __restrict__ melw,
+                                            const int* __restrict__ spans, int m, int n_mels,
+                                            int lane) {
+  const int lo = __ldg(spans + m), hi = __ldg(spans + n_mels + m);
+  const int base = (__ldg(spans + 2 * n_mels + m) - lo) * R + lane;
+  float acc = 0.f;
+  for (int k = lo; k < hi; ++k) acc = fmaf(pw[k], __ldg(melw + base + k * R), acc);
+  return acc;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+ct_mel_kernel(const float* __restrict__ wav, const float2* __restrict__ win,
+              const float2* __restrict__ tw1, const float2* __restrict__ tw2,
+              const float* __restrict__ melw, const int* __restrict__ spans,
+              float* __restrict__ out, int n_rows, int n_frames, long long n_pad, int hop,
+              int n_mels) {
+  extern __shared__ float2 smem[];  // [WARPS][R * TS]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + warp;
+  if (r >= n_rows) return;
+  float2* tile = smem + warp * (R * TS);
+
+  // 2. pack and window: register b holds z[lane + 32 b]
+  const float* src = wav + (long long)(r / n_frames) * n_pad + (long long)(r % n_frames) * hop + 2 * lane;
+  float re[R], im[R];
+#pragma unroll
+  for (int b = 0; b < R; ++b) {
+    float2 v;
+    if constexpr (VEC) {
+      v = __ldg(reinterpret_cast<const float2*>(src + 64 * b));
+    } else {
+      v = make_float2(__ldg(src + 64 * b), __ldg(src + 64 * b + 1));
+    }
+    const float2 w = __ldg(win + lane + 32 * b);
+    re[b] = v.x * w.x;
+    im[b] = v.y * w.y;
   }
 
-  const int n_groups = (n_rows + FB - 1) / FB;
-  for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const long long r0 = (long long)g * FB;
-
-    // 1. windowed frames (zeros past the last row)
+  // 3. pass 1 over b, twiddle W_1024^(lane c) (table [c][a]), 4. transpose
+  fft32(re, im);
 #pragma unroll
-    for (int f = 0; f < FB; ++f) {
-      const long long r = r0 + f;
-      const bool ok = r < n_rows;
-      const float* src = wav + (ok ? (r / n_frames) * n_pad + (r % n_frames) * (long long)hop : 0);
-      for (int n = tid; n < NFFT; n += THREADS) xs[f * NFFT + n] = ok ? src[n] * __ldg(win + n) : 0.f;
-    }
-    __syncthreads();
-
-    // 2. stage A and twiddle: thread = (frame f, offset n1)
-    {
-      const int f = tid / N1, n1 = tid % N1;
-      float gr[KH], gi[KH];
-#pragma unroll
-      for (int k2 = 0; k2 < KH; ++k2) gr[k2] = gi[k2] = 0.f;
-#pragma unroll
-      for (int n2 = 0; n2 < N2; ++n2) {
-        const float v = xs[f * NFFT + n1 + N1 * n2];
-#pragma unroll
-        for (int k2 = 0; k2 < KH; ++k2) {
-          gr[k2] = fmaf(c_e32[0][n2][k2], v, gr[k2]);
-          gi[k2] = fmaf(c_e32[1][n2][k2], v, gi[k2]);
-        }
-      }
-#pragma unroll
-      for (int k2 = 0; k2 < N2; ++k2) {
-        const float a = k2 < KH ? gr[k2] : gr[N2 - k2];
-        const float b = k2 < KH ? gi[k2] : -gi[N2 - k2];
-        const float t_r = __ldg(tw + k2 * N1 + n1);
-        const float t_i = __ldg(tw + (N2 + k2) * N1 + n1);
-        br[(f * N2 + k2) * BS + n1] = a * t_r - b * t_i;
-        bi[(f * N2 + k2) * BS + n1] = a * t_i + b * t_r;
-      }
-    }
-    __syncthreads();
-
-    // 3a. the Nyquist bin k = 1024 (k2 = 0, k1 = 32): one warp per frame
-    if (tid < 32 * FB) {
-      const int f = tid >> 5, lane = tid & 31;
-      float xr = 0.f, xi = 0.f;
-      for (int n1 = lane; n1 < N1; n1 += 32) {
-        const float a = br[f * N2 * BS + n1], b = bi[f * N2 * BS + n1];
-        const float c = ec[n1 * K1C + 32], s = es[n1 * K1C + 32];
-        xr += a * c - b * s;
-        xi += a * s + b * c;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        xr += __shfl_xor_sync(0xffffffffu, xr, off);
-        xi += __shfl_xor_sync(0xffffffffu, xi, off);
-      }
-      if (lane == 0) xs[f * NFFT + 32 * PW] = xr * xr + xi * xi;
-    }
-
-    // 3b. stage C: thread = rows ty + 16 i (i < 4) x bins k1 = tx + 8 j (j < 4)
-    {
-      const int tx = tid & 7, ty = tid >> 3;
-      float xr[4][4], xi[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xr[i][j] = xi[i][j] = 0.f;
-#pragma unroll 4
-      for (int n1 = 0; n1 < N1; ++n1) {
-        float ar[4], ai[4], c[4], s[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ar[i] = br[(ty + 16 * i) * BS + n1];
-          ai[i] = bi[(ty + 16 * i) * BS + n1];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          c[j] = ec[n1 * K1C + tx + 8 * j];
-          s[j] = es[n1 * K1C + tx + 8 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            xr[i][j] = fmaf(ar[i], c[j], xr[i][j]);
-            xr[i][j] = fmaf(-ai[i], s[j], xr[i][j]);
-            xi[i][j] = fmaf(ar[i], s[j], xi[i][j]);
-            xi[i][j] = fmaf(ai[i], c[j], xi[i][j]);
-          }
-      }
-      // |X|^2 into the (now free) frame buffer: row = f * 32 + k2
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i, f = row / N2, k2 = row % N2;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          xs[f * NFFT + (tx + 8 * j) * PW + k2] = xr[i][j] * xr[i][j] + xi[i][j] * xi[i][j];
-      }
-    }
-    __syncthreads();
-
-    // 4. mel: thread = (frame, mel), over the filter's nonzero bins
-    for (int t = tid; t < FB * n_mels; t += THREADS) {
-      const int f = t / n_mels, m = t - f * n_mels;
-      const long long r = r0 + f;
-      if (r >= n_rows) continue;
-      const float* p = xs + f * NFFT;
-      const int hi = __ldg(mel_hi + m);
-      float acc = 0.f;
-      for (int k = __ldg(mel_lo + m); k < hi; ++k)
-        acc = fmaf(p[(k >> 5) * PW + (k & 31)], __ldg(mel + (long long)k * n_mels + m), acc);
-      out[r * n_mels + m] = acc;
-    }
-    __syncthreads();  // xs is rewritten by the next group
+  for (int j = 0; j < R; ++j) {
+    const int c = brev5(j);
+    const float2 t = __ldg(tw1 + c * R + lane);
+    tile[c * TS + lane] = make_float2(re[j] * t.x - im[j] * t.y, re[j] * t.y + im[j] * t.x);
   }
+  __syncwarp();
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const float2 y = tile[lane * TS + a];
+    re[a] = y.x;
+    im[a] = y.y;
+  }
+
+  // 5. pass 2 over a: register j holds Z[lane + 32 brev5(j)]
+  fft32(re, im);
+  __syncwarp();  // every lane has read the tile: it becomes the power row
+
+  // 6. real split and |X|^2
+  float* pw = reinterpret_cast<float*>(tile);
+  const int partner = (R - lane) & (R - 1);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int d = brev5(j), j0 = brev5((R - d) & (R - 1));
+    const float sr = __shfl_sync(FULL, re[R - 1 - j], partner);
+    const float si = __shfl_sync(FULL, im[R - 1 - j], partner);
+    const float pr = lane == 0 ? re[j0] : sr;
+    const float pi = lane == 0 ? im[j0] : si;
+    const int k = lane + R * d;
+    const float2 w = __ldg(tw2 + k);
+    const float ar = 0.5f * (re[j] + pr), ai = 0.5f * (im[j] - pi);
+    const float br = 0.5f * (re[j] - pr), bi = 0.5f * (im[j] + pi);
+    const float xr = ar + (w.x * bi + w.y * br);
+    const float xi = ai - (w.x * br - w.y * bi);
+    pw[k] = xr * xr + xi * xi;
+  }
+  if (lane == 0) {
+    const float x = re[0] - im[0];  // X[1024]
+    pw[NH] = x * x;
+  }
+  __syncwarp();
+
+  // 7. mel: lane l takes the filter pairs (m, n_mels - 1 - m), m = l, l + 32, ...
+  float* orow = out + (long long)r * n_mels;
+  for (int m = lane; m < (n_mels + 1) / 2; m += R) {
+    orow[m] = filter_sum(pw, melw, spans, m, n_mels, lane);
+    const int m2 = n_mels - 1 - m;
+    if (m2 != m) orow[m2] = filter_sum(pw, melw, spans, m2, n_mels, lane);
+  }
+}
+
+template <bool VEC>
+cudaError_t launch(const float* wav, const float2* win, const float2* tw1, const float2* tw2,
+                   const float* melw, const int* spans, float* out, int n_rows, int n_frames,
+                   long long n_pad, int hop, int n_mels, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * WARPS * R * TS;  // 67,584 bytes
+  cudaError_t err =
+      cudaFuncSetAttribute(ct_mel_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(((long long)n_rows + WARPS - 1) / WARPS);
+  ct_mel_kernel<VEC><<<blocks, THREADS, smem, s>>>(wav, win, tw1, tw2, melw, spans, out, n_rows,
+                                                   n_frames, n_pad, hop, n_mels);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers to
-// contiguous arrays: wav (B, n_pad) f32; e32 (2, 32, 17) f32 = [cos|-sin] of
-// the 32-point DFT for k2 = 0..16; e64 (2, 64, 33) f32 = the 64-point DFT for
-// k1 = 0..32; tw (2, 32, 64) f32 = the twiddle as [k2][n1]; win (2048,) f32;
-// mel (1025, n_mels) f32; mel_lo, mel_hi (n_mels,) int32 = each filter's
-// nonzero bin span; out (n_rows, n_mels) f32 with n_rows = B * n_frames.
-// Copies e32 into constant memory and launches, both on `stream`; returns
-// the first cudaError_t (0 on success).
-extern "C" int ct_mel_launch(const void* wav, const void* e32, const void* e64, const void* tw,
-                             const void* win, const void* mel, const void* mel_lo,
-                             const void* mel_hi, void* out, int n_rows, int n_frames,
-                             long long n_pad, int hop, int n_mels, void* stream) {
+// contiguous arrays: wav (B, n_pad) f32; win (2048,) f32 (read as 1024
+// float2 pairs); tw1 (32 c, 32 a, 2) f32 = W_1024^(a c); tw2 (1025, 2) f32 =
+// W_2048^k; melw (rows, 32) f32 the mel weights lane by lane; spans (3,
+// n_mels) int32 = each filter's first and last-plus-one nonzero bin and the
+// row of its first weight in melw; out (n_rows, n_mels) f32 with n_rows = B *
+// n_frames. win, tw1 and tw2 must be 8-byte aligned. Rows are read as float2
+// when wav is 8-byte aligned and n_pad and hop are even, else as floats.
+// Launches on `stream`; returns the first cudaError_t (0 on success).
+extern "C" int ct_mel_launch(const void* wav, const void* win, const void* tw1, const void* tw2,
+                             const void* melw, const void* spans, void* out, int n_rows,
+                             int n_frames, long long n_pad, int hop, int n_mels, void* stream) {
   if (n_rows < 0 || n_frames < 1 || hop < 1 || n_mels < 1 || n_pad < NFFT)
     return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(win) | reinterpret_cast<uintptr_t>(tw1) |
+       reinterpret_cast<uintptr_t>(tw2)) % 8)
+    return (int)cudaErrorMisalignedAddress;
   if (n_rows == 0) return (int)cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemcpyToSymbolAsync(c_e32, e32, sizeof(c_e32), 0, cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (FB * NFFT + 2 * ROWS * BS + 2 * N1 * K1C);
-  err = cudaFuncSetAttribute(ct_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ct_mel_kernel, THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long groups = ((long long)n_rows + FB - 1) / FB;
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(groups < cap ? groups : cap);
-  ct_mel_kernel<<<blocks, THREADS, smem, s>>>(
-      static_cast<const float*>(wav), static_cast<const float*>(e64),
-      static_cast<const float*>(tw), static_cast<const float*>(win),
-      static_cast<const float*>(mel), static_cast<const int*>(mel_lo),
-      static_cast<const int*>(mel_hi), static_cast<float*>(out), n_rows, n_frames, n_pad, hop,
-      n_mels);
-  return (int)cudaGetLastError();
+  const bool vec = reinterpret_cast<uintptr_t>(wav) % 8 == 0 && n_pad % 2 == 0 && hop % 2 == 0;
+  const auto go = vec ? &launch<true> : &launch<false>;
+  return (int)go(static_cast<const float*>(wav), static_cast<const float2*>(win),
+                 static_cast<const float2*>(tw1), static_cast<const float2*>(tw2),
+                 static_cast<const float*>(melw), static_cast<const int*>(spans),
+                 static_cast<float*>(out), n_rows, n_frames, n_pad, hop, n_mels,
+                 static_cast<cudaStream_t>(stream));
 }

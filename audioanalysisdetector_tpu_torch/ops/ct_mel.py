@@ -1,26 +1,30 @@
-"""Mel power through a Cooley-Tukey factored DFT: the hand-written Hopper kernel (K3).
+"""Mel power of 2048-point frames through a fast Fourier transform: the hand-written Hopper kernel (K3).
 
 Counterpart of the JAX package's ``ops/ct_mel.py`` (``ct_mel``,
-``ct_log_mel``; Pallas kernel ``_ct_mel_parts``). The 2048-point DFT of
-each windowed frame is factored as 64 x 32: with ``n = n1 + 64 n2`` and
-``k = k2 + 32 k1``,
+``ct_log_mel``; Pallas kernel ``_ct_mel_parts``), which factors the
+2048-point DFT as 64 x 32 (``n = n1 + 64 n2``, ``k = k2 + 32 k1``):
 
     G[k2, n1] = sum_n2 E32[n2, k2] x[n1 + 64 n2]              (stage A)
     X[k2, k1] = sum_n1 G[k2, n1] t[n1, k2] E64[n1, k1]        (twiddle, stage C)
 
-then ``|X|^2`` on bins 0..1024 and the mel projection. That is about a
-fifth of the multiply-adds of the direct DFT that ``ops/wave_mel.py`` (K1)
-computes. The CUDA source is ``ops/csrc/ct_mel.cu`` (design and bounds in
-its header note). The TPU kernel's lane tricks (the contraction padded to
-128, the packed ``[xr|xi]`` squares and the duplicated half-weighted mel
-matrix) and its head/body/tail reflect split are not carried over: the
-kernel reads frames from the center-padded waveform as K1 does and
-contracts bins 0..1024 with the filterbank as it is.
+then ``|X|^2`` on bins 0..1024 and the mel projection. ``ct_mel_reference``,
+the plain PyTorch version, keeps that factorization as plain matmuls.
+
+The CUDA kernel (``ops/csrc/ct_mel.cu``, design and bound in its header
+note) computes the same function as a real FFT, one warp per frame row: the
+frame is packed into 1024 complex values, transformed by two passes of
+32-point FFTs in registers (a four-step 32 x 32 FFT), and split into the
+real frame's bins 0..1024. Its host tables (``_kernel_operands``) are the
+twiddles ``W_1024^(a c)`` and ``W_2048^k`` from float64, the window, and the
+mel weights laid out for the lanes that sum them. The TPU kernel's lane tricks (the
+contraction padded to 128, the packed ``[xr|xi]`` squares and the
+duplicated half-weighted mel matrix) and its head/body/tail reflect split
+are not carried over: the kernel reads frames from the center-padded
+waveform as K1 does.
 
 ``ct_mel`` launches the kernel on a CUDA tensor and runs
-``ct_mel_reference``, the plain PyTorch version of the same factorization,
-on a CPU tensor. There is no fallback: a failed build or a refused launch
-raises. Unlike the TPU kernel, any batch size is taken.
+``ct_mel_reference`` on a CPU tensor. There is no fallback: a failed build
+or a refused launch raises. Unlike the TPU kernel, any batch size is taken.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from audioanalysisdetector_tpu_torch.ops import _build
 N1 = 64  # in-chunk offset / stage-C DFT length
 N2 = 32  # chunk index / stage-A DFT length
 N_FFT = N1 * N2
+LANES = 32  # the FFT kernel's warp: one frame row, 32 x 32 registers
 
 # Kernel launches made by ``ct_mel`` in this process. Only the wrapper's
 # CUDA branch adds to it, one per launch.
@@ -101,26 +106,59 @@ def _operands_on(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ..
     return tuple(torch.from_numpy(a).to(device) for a in _ct_operands(cfg))
 
 
+def _twiddle(exponent: np.ndarray, n: int) -> np.ndarray:
+    """``W_n^exponent = exp(-2 pi i exponent / n)`` from float64, rounded to
+    f32 as ``(..., 2)`` [real, imaginary] pairs."""
+    angle = 2 * np.pi * (exponent % n) / n
+    return np.stack([np.cos(angle), -np.sin(angle)], axis=-1).astype(np.float32)
+
+
+def mel_lanes(n_mels: int) -> list[list[list[int]]]:
+    """The kernel's mel pairing: for each round g, the filters the 32 lanes
+    take together, first ``m = 32 g + lane`` (below ``ceil(n_mels / 2)``),
+    then each one's mirror ``n_mels - 1 - m`` (but the middle filter of an
+    odd count once), as ``[firsts, seconds]`` indexed by lane."""
+    half = (n_mels + 1) // 2
+    rounds = []
+    for g in range(-(-half // LANES)):
+        firsts = list(range(g * LANES, min((g + 1) * LANES, half)))
+        rounds.append([firsts, [n_mels - 1 - m if n_mels - 1 - m != m else -1 for m in firsts]])
+    return rounds
+
+
 @lru_cache(maxsize=None)
 def _kernel_operands(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The kernel's layout of the same constants, once per (config, device):
-    E32 for k2 0..16 (real input: G[32-k2] = conj G[k2]) as ``(2, 32, 17)``,
-    E64 for k1 0..32 as ``(2, 64, 33)``, the twiddle transposed to
-    ``(2, 32 k2, 64 n1)``, the window ``(2048,)``, the filterbank
-    ``(1025, n_mels)`` and each mel's first and last-plus-one nonzero bin."""
-    c32, s32, c64, s64, tr, ti, w_rs, melT = _ct_operands(cfg)
+    """The FFT kernel's host tables, once per (config, device): the window
+    ``(2048,)``; ``tw1`` ``(32 c, 32 a, 2)`` = ``W_1024^(a c)``, the pass-1
+    twiddle (row c read by lanes a); ``tw2`` ``(1025, 2)`` = ``W_2048^k``, the
+    real split's twiddle; ``melw`` ``(rows, 32)``, the mel weights lane by
+    lane: filter m's weight for bin k at ``[row[m] + k - lo[m], lane]`` for
+    the lane that sums it (``mel_lanes``), one row base for the filters the
+    lanes take together; and ``spans`` ``(3, n_mels)`` int32, each filter's
+    first and last-plus-one nonzero bin and its ``row``."""
+    *_, w_rs, melT = _ct_operands(cfg)
     nz = melT != 0
     any_nz = nz.any(axis=0)
-    lo = np.where(any_nz, nz.argmax(axis=0), 0).astype(np.int32)
-    hi = np.where(any_nz, melT.shape[0] - nz[::-1].argmax(axis=0), 0).astype(np.int32)
+    lo = np.where(any_nz, nz.argmax(axis=0), 0)
+    hi = np.where(any_nz, melT.shape[0] - nz[::-1].argmax(axis=0), 0)
+    row = np.zeros(cfg.n_mels, np.int64)
+    slots = []  # (lane, filter)
+    n_rows = 0
+    for together in (part for rnd in mel_lanes(cfg.n_mels) for part in rnd):
+        taken = [(lane, m) for lane, m in enumerate(together) if m >= 0]
+        for lane, m in taken:
+            row[m] = n_rows
+            slots.append((lane, m))
+        n_rows += max((hi[m] - lo[m] for _, m in taken), default=0)
+    melw = np.zeros((n_rows, LANES), np.float32)
+    for lane, m in slots:
+        melw[row[m] : row[m] + hi[m] - lo[m], lane] = melT[lo[m] : hi[m], m]
     arrays = (
-        np.stack([c32[:, :17], s32[:, :17]]),
-        np.stack([c64[:, :33], s64[:, :33]]),
-        np.stack([tr.T, ti.T]),
         w_rs.reshape(-1),
-        melT,
-        lo,
-        hi,
+        _twiddle(np.outer(np.arange(LANES), np.arange(LANES)), N_FFT // 2),
+        _twiddle(np.arange(N_FFT // 2 + 1), N_FFT),
+        melw,
+        np.stack([lo, hi, row]).astype(np.int32),
     )
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
@@ -128,7 +166,7 @@ def _kernel_operands(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor
 @lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load_library("ct_mel").ct_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
         ctypes.c_int
     ] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -188,19 +226,17 @@ def ct_mel(
     B, n_pad = wav_padded.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
-    e32, e64, tw, win, melT, lo, hi = _kernel_operands(cfg, wav_padded.device)
+    win, tw1, tw2, melw, spans = _kernel_operands(cfg, wav_padded.device)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
     fn = _kernel()
     with torch.cuda.device(wav_padded.device):
         rc = fn(
             wav_padded.data_ptr(),
-            e32.data_ptr(),
-            e64.data_ptr(),
-            tw.data_ptr(),
             win.data_ptr(),
-            melT.data_ptr(),
-            lo.data_ptr(),
-            hi.data_ptr(),
+            tw1.data_ptr(),
+            tw2.data_ptr(),
+            melw.data_ptr(),
+            spans.data_ptr(),
             out.data_ptr(),
             B * n_frames,
             n_frames,

@@ -45,9 +45,10 @@ def init_mel_cnn_bilstm(
     *,
     checkpoint: str | None = None,
     seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> CNNBiLSTMHybrid:
-    """The flagship mel model in eval mode on ``device`` — the one place the
+    """The flagship mel model in eval mode on ``device`` (the card unless the
+    caller names another) — the one place the
     checkpoint contract lives: parameters AND trained BatchNorm statistics
     travel together (inference needs both).
 

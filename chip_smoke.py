@@ -21,15 +21,17 @@ each print their lines:
    whose rows are not 16-byte aligned), at n_fft 400 / hop 160 (the 25 ms
    / 10 ms speech framing, a sample tail past the kernel's 32-sample
    stages), at n_fft 64 (fewer stages than the ring is deep) and with 128
-   mels, mel power and dB; then both times from CUDA events, in turns;
+   mels, mel power and dB; then the kernel, plain and library times from
+   CUDA events, in turns, beside the bound;
 4. K3: ``ct_mel`` against ``ct_mel_reference`` and against K1's direct
-   plain chain at parity (random B=8192, ragged 13, silence, length 32032),
-   its log-mel against the plain dB, its time against its plain version and
-   against K1 in turns;
+   plain chain at parity (random B=8192, ragged 13, silence, length 32032,
+   length 32001, whose odd padded rows take the 4-byte loads, and 128
+   mels), its log-mel against the plain dB, its time against its plain
+   version, the library chain and K1 in turns, beside the bound;
 5. K2: ``fused_mel_from_frames`` against its plain version in float32 and
    bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, with
-   128 mels and at n_fft 100 off alignment, bf16 against f32, the times;
-   then the drop-in
+   128 mels and at n_fft 100 off alignment, bf16 against f32, the times
+   beside the bound and the library chain; then the drop-in
    ``fused_log_mel_spectrogram`` path in both dtypes, counting its launches;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
@@ -117,6 +119,10 @@ REL_TOL = 1e-4
 # log-mel, kernel vs plain, in dB: a relative power error e moves dB by
 # 4.3 e, and top_db=80 keeps values within 80 dB of the per-utterance max.
 DB_TOL = 1e-3
+# The published peaks of one H100 SXM at 700 W (NVIDIA's data sheet) that
+# ``mel_bound`` divides by: fp32 outside the tensor cores, and HBM3.
+FP32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 # K2 in bf16 against its f32 result: the median relative error of the mel
 # power (the bound of the JAX package's tests/test_ops_pallas.py:54)
 BF16_MEDIAN_TOL = 0.02
@@ -147,12 +153,56 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kern, plain, iters: int = 5) -> dict:
-    """Kernel and plain times, plain-kernel-kernel-plain, so drift hits both alike."""
-    kern(), plain()
+def in_turns(kern, plain, library=None, iters: int = 5) -> dict:
+    """Kernel and plain times (and the library call's, when given) in turns,
+    plain-kernel-library-library-kernel-plain, so drift hits all alike."""
+    fns = [plain, kern] + ([library] if library else [])
+    for f in fns:
+        f()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "runs": (k1, k2), "plain_runs": (p1, p2)}
+    t = [cuda_ms(f, iters) for f in fns + fns[::-1]]
+    n = len(fns)
+    out = {"ms": (t[1] + t[-2]) / 2, "plain_ms": (t[0] + t[-1]) / 2,
+           "runs": (t[1], t[-2]), "plain_runs": (t[0], t[-1]), "library_ms": None}
+    if library:
+        out.update(library_ms=(t[n - 1] + t[n]) / 2, library_runs=(t[n - 1], t[n]))
+    return out
+
+
+def mel_bound(cfg: MelConfig, rows: int, in_bytes: int) -> dict:
+    """The least time the card could take for mel power over ``rows``
+    frames: the larger of the operations of a real FFT, window, |X|^2 and
+    the mel weights, 2.5 N log2 N + N + 3 (N/2 + 1) + 2 nnz(mel) per frame
+    at FP32_FLOP_PER_S, and the bytes, ``in_bytes`` read once and the f32
+    output written once, at HBM_BYTES_PER_S."""
+    n = cfg.n_fft
+    nnz = int(np.count_nonzero(cfg.filterbank()))
+    ops = rows * (2.5 * n * np.log2(n) + n + 3 * (n // 2 + 1) + 2 * nnz)
+    ops_ms = float(ops / FP32_FLOP_PER_S * 1e3)
+    bytes_ms = (in_bytes + rows * cfg.n_mels * 4) / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def _window_and_melT(cfg: MelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    win = _window_array(cfg.window, cfg.win_length or cfg.n_fft, cfg.n_fft)
+    return (torch.from_numpy(np.asarray(win, np.float32)).to(DEVICE),
+            torch.from_numpy(np.ascontiguousarray(cfg.filterbank().T, np.float32)).to(DEVICE))
+
+
+def stft_chain(padded: torch.Tensor, cfg: MelConfig):
+    """The library yardstick for K1 and K3 (timed, never used by the port):
+    cuFFT's ``torch.stft`` of the same center-padded rows (center=False:
+    the kernels take the padding as input), |.|^2, the mel matmul."""
+    win, melT = _window_and_melT(cfg)
+    return lambda: torch.stft(padded, cfg.n_fft, cfg.hop_length, window=win, center=False,
+                              return_complex=True).abs().square().transpose(1, 2) @ melT
+
+
+def rfft_chain(frames: torch.Tensor, cfg: MelConfig):
+    """The library yardstick for K2: ``torch.fft.rfft`` of the windowed frames, |.|^2, mel."""
+    win, melT = _window_and_melT(cfg)
+    return lambda: torch.fft.rfft(frames * win).abs().square() @ melT
 
 
 def device_breakdown(fn, iters: int = 5, top: int = 8) -> tuple[float, float, list]:
@@ -183,6 +233,17 @@ def device_breakdown(fn, iters: int = 5, top: int = 8) -> tuple[float, float, li
             acc[1] += 1
     ranked = sorted(((ms, n // iters, name) for name, (ms, n) in per_kernel.items()), reverse=True)
     return wall, sum(ms for ms, _, _ in ranked), ranked[:top]
+
+
+def bound_fields(t: dict, bound: dict) -> dict:
+    """A log line's view of a timing: the bound, the share of it the kernel
+    reaches, and the library call's time where there is one."""
+    out = {"bound_ms": f"{bound['bound_ms']:.3f}", "bound_by": bound["bound_by"],
+           "bound_ops_ms": f"{bound['ops_ms']:.3f}", "bound_bytes_ms": f"{bound['bytes_ms']:.3f}",
+           "share_of_bound": f"{bound['bound_ms'] / t['ms']:.4f}"}
+    if t["library_ms"] is not None:
+        out.update(library_ms=f"{t['library_ms']:.3f}", library_runs="%.3f,%.3f" % t["library_runs"])
+    return out
 
 
 def run_counted(fn):
@@ -304,13 +365,15 @@ def phase_k1() -> dict:
         wav = waves(BATCH, 2)
         padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
         t = in_turns(lambda: wm.wave_mel(padded, cfg, n_frames=T),
-                     lambda: wm.wave_mel_reference(padded, cfg, n_frames=T))
+                     lambda: wm.wave_mel_reference(padded, cfg, n_frames=T),
+                     stft_chain(padded, cfg))
+        bound = mel_bound(cfg, BATCH * T, padded.numel() * 4)
         flop = 4.0 * BATCH * T * cfg.n_fft * (cfg.n_fft // 2 + 1)
         log("k1", profile=profile, batch=BATCH, kernel_ms=f"{t['ms']:.3f}",
             plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.3f,%.3f" % t["runs"],
             plain_runs="%.3f,%.3f" % t["plain_runs"], dft_tflop=f"{flop / 1e12:.3f}",
-            kernel_dft_tflops=f"{flop / t['ms'] / 1e9:.2f}")
-        results[profile] = {**t, "max_abs_err": max_abs}
+            kernel_dft_tflops=f"{flop / t['ms'] / 1e9:.2f}", **bound_fields(t, bound))
+        results[profile] = {**t, **bound, "max_abs_err": max_abs}
         del wav, padded
         free()
     return results
@@ -318,10 +381,13 @@ def phase_k1() -> dict:
 
 def phase_k3() -> dict:
     """K3 vs its plain version and K1's direct plain chain at parity."""
-    cfg = MelConfig.for_profile("parity", SR)
     max_abs = 0.0
+    # length 32001: the padded rows are 34049 samples, so odd rows start off
+    # 8-byte alignment and the launcher takes the 4-byte-load instance
     for case, batch, n in (("random", BATCH, N_SAMPLES), ("ragged", 13, N_SAMPLES),
-                           ("silence", 64, N_SAMPLES), ("length32032", 64, 32032)):
+                           ("silence", 64, N_SAMPLES), ("length32032", 64, 32032),
+                           ("length32001", 64, 32001), ("mels128", 13, N_SAMPLES)):
+        cfg = MelConfig(sr=SR, n_mels=128) if case == "mels128" else MelConfig.for_profile("parity", SR)
         wav = waves(batch, 1, n) if case != "silence" else torch.zeros((batch, n), device=DEVICE)
         T = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
         padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
@@ -338,8 +404,9 @@ def phase_k3() -> dict:
         db_ref = power_to_db(direct.transpose(1, 2), ref="max", top_db=80.0)
         del direct
         db = float((ctm.ct_log_mel(wav, cfg) - db_ref).abs().max())
-        log("k3", case=case, batch=batch, n=n, rel_err_vs_ct_plain=f"{rel_ct:.3e}",
-            rel_err_vs_direct_plain=f"{rel_direct:.3e}", db_err=f"{db:.3e}")
+        log("k3", case=case, batch=batch, n=n, n_mels=cfg.n_mels,
+            rel_err_vs_ct_plain=f"{rel_ct:.3e}", rel_err_vs_direct_plain=f"{rel_direct:.3e}",
+            db_err=f"{db:.3e}")
         if max(rel_ct, rel_direct) > REL_TOL or db > DB_TOL:
             raise AssertionError(
                 f"K3 {case}: kernel disagrees with plain (rel {rel_ct:.3e} / {rel_direct:.3e} "
@@ -347,21 +414,30 @@ def phase_k3() -> dict:
             )
         del wav, padded, got, db_ref
         free()
+    cfg = MelConfig.for_profile("parity", SR)
     wav = waves(BATCH, 2)
     padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
     T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
     k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
-    t = in_turns(k3, lambda: ctm.ct_mel_reference(padded, cfg, n_frames=T))
+    library = stft_chain(padded, cfg)
+    lib_rel = rel_err(library(), k3())
+    t = in_turns(k3, lambda: ctm.ct_mel_reference(padded, cfg, n_frames=T), library)
     route = in_turns(k3, lambda: wm.wave_mel(padded, cfg, n_frames=T))  # "plain" = K1 here
-    flop = 2.0 * BATCH * T * (17 * 32 * 64 * 2 + 32 * 32 * 64 * 4)
+    bound = mel_bound(cfg, BATCH * T, padded.numel() * 4)
+    # the kernel's own flops per frame: window, two passes of 32 radix-2
+    # 32-point FFTs (80 butterflies, 34 twiddle products: 524 flops each),
+    # the W_1024 twiddle, the real split with |X|^2 (19 a bin), the mel spans
+    nnz = int(np.count_nonzero(cfg.filterbank()))
+    flop = BATCH * T * (2048 + 2 * 32 * 524 + 6 * 1024 + 19 * 1025 + 2 * nnz)
     log("k3", batch=BATCH, kernel_ms=f"{t['ms']:.3f}", plain_ms=f"{t['plain_ms']:.3f}",
         kernel_runs="%.3f,%.3f" % t["runs"], plain_runs="%.3f,%.3f" % t["plain_runs"],
-        kernel_tflops=f"{flop / t['ms'] / 1e9:.2f}")
+        kernel_gflop=f"{flop / 1e9:.2f}", kernel_tflops=f"{flop / t['ms'] / 1e9:.2f}",
+        library_rel_err=f"{lib_rel:.3e}", **bound_fields(t, bound))
     log("route", profile="parity", batch=BATCH, ct_mel_ms="%.3f,%.3f" % route["runs"],
         wave_mel_ms="%.3f,%.3f" % route["plain_runs"], routed=mel_route(cfg))
     del wav, padded
     free()
-    return {**t, "max_abs_err": max_abs, "k1_ms": route["plain_ms"]}
+    return {**t, **bound, "max_abs_err": max_abs, "k1_ms": route["plain_ms"]}
 
 
 def phase_k2() -> dict:
@@ -396,13 +472,16 @@ def phase_k2() -> dict:
                 raise AssertionError(f"K2 {profile}/{case}: bf16 median rel err {med:.3e}")
             del outs, f32
             free()
+        # the wrapper takes f32 frames in both compute types (it casts them)
+        bound = mel_bound(cfg, n_full, frames.numel() * 4)
         for dt in ("float32", "bfloat16"):
             t = in_turns(lambda: flm.fused_mel_from_frames(frames, cfg, compute_dtype=dt),
-                         lambda: flm.fused_mel_from_frames_reference(frames, cfg, compute_dtype=dt))
+                         lambda: flm.fused_mel_from_frames_reference(frames, cfg, compute_dtype=dt),
+                         rfft_chain(frames, cfg))
             log("k2", profile=profile, n=n_full, dtype=dt, kernel_ms=f"{t['ms']:.3f}",
                 plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.3f,%.3f" % t["runs"],
-                plain_runs="%.3f,%.3f" % t["plain_runs"])
-            results[(profile, dt)] = {**t, "max_abs_err": max_abs}
+                plain_runs="%.3f,%.3f" % t["plain_runs"], **bound_fields(t, bound))
+            results[(profile, dt)] = {**t, **bound, "max_abs_err": max_abs}
         del frames
         free()
 
@@ -689,6 +768,9 @@ def main() -> int:
             "max_abs_err": timed[name]["max_abs_err"],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],
+            "bound_ms": timed[name]["bound_ms"],
+            "bound_by": timed[name]["bound_by"],
+            "library_ms": timed[name]["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done", seconds=f"{time.perf_counter() - t0:.1f}")

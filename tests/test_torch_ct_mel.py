@@ -160,18 +160,20 @@ def test_ct_operands_bitwise_pieces_of_the_jax_operands():
 
 def test_kernel_operands_spans_cover_every_weight():
     cfg = tmel.MelConfig()
-    e32, e64, tw, win, melT, lo, hi = tct._kernel_operands(cfg, torch.device("cpu"))
-    c32, s32, c64, s64, tr, ti, w_rs, _ = tct._ct_operands(cfg)
-    assert tuple(e32.shape) == (2, 32, 17) and tuple(e64.shape) == (2, 64, 33)
-    np.testing.assert_array_equal(e64[1].numpy(), s64[:, :33])
-    np.testing.assert_array_equal(tw[0].numpy(), tr.T)
+    win, tw1, tw2, melw, spans = tct._kernel_operands(cfg, torch.device("cpu"))
+    *_, w_rs, melT = tct._ct_operands(cfg)
+    assert tuple(tw1.shape) == (32, 32, 2) and tuple(tw2.shape) == (1025, 2)
+    np.testing.assert_array_equal(win.numpy(), w_rs.reshape(-1))
+    lo, hi, row = spans.numpy()
     mask = np.zeros(melT.shape, bool)
+    lane_of = {m: lane for rnd in tct.mel_lanes(cfg.n_mels) for part in rnd
+               for lane, m in enumerate(part) if m >= 0}
     for m, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
         mask[a:b, m] = True
-    assert not (melT.numpy()[~mask]).any()  # nothing outside [lo, hi)
-    # and the real input's conjugate symmetry that stage A relies on
-    np.testing.assert_allclose(c32[:, 17:], c32[:, 1:16][:, ::-1], atol=1e-6)
-    np.testing.assert_allclose(s32[:, 17:], -s32[:, 1:16][:, ::-1], atol=1e-6)
+        # the weights of bins a..b-1, in order, down the column of the lane that sums them
+        np.testing.assert_array_equal(melw[row[m] : row[m] + b - a, lane_of[m]].numpy(), melT[a:b, m])
+    assert not (melT[~mask]).any()  # nothing outside [lo, hi)
+    assert int(np.count_nonzero(melw.numpy())) == int(np.count_nonzero(melT))
 
 
 @pytest.mark.parametrize(

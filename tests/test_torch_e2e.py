@@ -67,9 +67,9 @@ def test_slice_scores_match_jax(profile):
 
 def test_init_is_seeded_and_checkpoint_round_trips(tmp_path):
     cfg = MelConfig.for_speech()
-    a = init_mel_cnn_bilstm(cfg, 32000, seed=3)
-    b = init_mel_cnn_bilstm(cfg, 32000, seed=3)
-    c = init_mel_cnn_bilstm(cfg, 32000, seed=4)
+    a = init_mel_cnn_bilstm(cfg, 32000, seed=3, device="cpu")
+    b = init_mel_cnn_bilstm(cfg, 32000, seed=3, device="cpu")
+    c = init_mel_cnn_bilstm(cfg, 32000, seed=4, device="cpu")
     assert a.conv.in_channels == 126 and not a.training
     for (name, p), q, r in zip(a.state_dict().items(), b.state_dict().values(), c.state_dict().values()):
         assert torch.equal(p, q), name
@@ -80,12 +80,12 @@ def test_init_is_seeded_and_checkpoint_round_trips(tmp_path):
     state = {k: v for k, v in c.state_dict().items() if not k.startswith("bn.running")}
     path = tmp_path / "model.pt"
     torch.save(state, path)
-    loaded = init_mel_cnn_bilstm(cfg, 32000, checkpoint=str(path), seed=3)
+    loaded = init_mel_cnn_bilstm(cfg, 32000, checkpoint=str(path), seed=3, device="cpu")
     assert torch.equal(loaded.fc1.weight, c.fc1.weight)
     assert torch.equal(loaded.bn.running_mean, a.bn.running_mean)
     torch.save({"conv.weight": c.conv.weight}, path)
     with pytest.raises(ValueError, match="does not fit"):
-        init_mel_cnn_bilstm(cfg, 32000, checkpoint=str(path))
+        init_mel_cnn_bilstm(cfg, 32000, checkpoint=str(path), device="cpu")
 
 
 def test_entry_scores_on_cpu():

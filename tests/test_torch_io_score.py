@@ -143,7 +143,7 @@ def test_stream_producer_dies_with_consumer(corpus):
 
 def test_score_paths_and_cli_match_the_direct_scorer(corpus, checkpoint, capsys):
     cfg = MelConfig()
-    model = init_mel_cnn_bilstm(cfg, 32000, checkpoint=checkpoint)
+    model = init_mel_cnn_bilstm(cfg, 32000, checkpoint=checkpoint, device="cpu")
     score = make_mel_cnn_bilstm_scorer(model, cfg)
     paths = sorted(glob.glob(str(corpus / "*")))
     rows = tnative.load_chunk_batch_native(paths, [0.0] * len(paths), [2.0] * len(paths))
@@ -178,7 +178,7 @@ def test_cli_score_allow_random_and_refusals(corpus, tmp_path, capsys):
     assert [line["file"] for line in lines] == paths
     rows = tnative.load_chunk_batch_native(paths, [0.0] * len(paths), [2.0] * len(paths))
     cfg = MelConfig()
-    direct = make_mel_cnn_bilstm_scorer(init_mel_cnn_bilstm(cfg, 32000, seed=0), cfg)(torch.from_numpy(rows))
+    direct = make_mel_cnn_bilstm_scorer(init_mel_cnn_bilstm(cfg, 32000, seed=0, device="cpu"), cfg)(torch.from_numpy(rows))
     np.testing.assert_allclose([line["spoof_score"] for line in lines], direct.numpy(), rtol=0, atol=SCORE_TOL)
 
 
