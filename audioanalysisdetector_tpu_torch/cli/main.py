@@ -43,7 +43,8 @@ def cmd_score(args) -> int:
     if not args.checkpoint and not args.allow_random:
         print(
             "score: no --checkpoint given — scores from randomly initialized "
-            "weights are meaningless. Pass --checkpoint <state_dict.pt>, "
+            "weights are meaningless. Pass --checkpoint <best_model.msgpack> "
+            "(a JAX-saved payload) or <state_dict.pt> (torch.save), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -80,7 +81,8 @@ def cmd_serve(args) -> int:
     if not args.checkpoint and not args.allow_random:
         print(
             "serve: no --checkpoint given — scores from randomly initialized "
-            "weights are meaningless. Pass --checkpoint <state_dict.pt>, "
+            "weights are meaningless. Pass --checkpoint <best_model.msgpack> "
+            "(a JAX-saved payload) or <state_dict.pt> (torch.save), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -168,7 +170,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="streaming batch size (decode of batch k+1 overlaps device "
         "scoring of batch k)",
     )
-    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument(
+        "--checkpoint", default=None,
+        help="a JAX-saved .msgpack payload or a torch.save state dict",
+    )
     sp.add_argument(
         "--allow-random", action="store_true",
         help="score with randomly initialized weights (smoke tests only)",
@@ -208,7 +213,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable the EWMA arrival-rate window (always wait max-wait-ms "
         "for a partial batch)",
     )
-    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument(
+        "--checkpoint", default=None,
+        help="a JAX-saved .msgpack payload or a torch.save state dict",
+    )
     sp.add_argument(
         "--allow-random", action="store_true",
         help="serve randomly initialized weights (smoke tests only)",

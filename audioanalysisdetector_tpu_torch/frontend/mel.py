@@ -185,10 +185,10 @@ def melspectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tenso
     """Mel power spectrogram of ``(..., n)`` waveforms -> ``(..., n_mels, T)``.
 
     On a CUDA tensor ``method="matmul"`` launches the kernel that
-    ``mel_route`` names; a configuration K1 does not take (``power != 2``, a
-    dtype other than float32) raises ``NotImplementedError`` there instead
-    of quietly running the plain chain. ``method="fft"`` is ``torch.fft`` on
-    any device.
+    ``mel_route`` names. K1 takes every configuration the JAX chain
+    computes (any ``power`` and ``n_mels``, float32 or bfloat16 waveforms);
+    another dtype raises ``NotImplementedError`` there instead of quietly
+    running the plain chain. ``method="fft"`` is ``torch.fft`` on any device.
     """
     if y.is_cuda and cfg.method == "matmul":
         # imported here: the kernel modules import this one for MelConfig

@@ -109,6 +109,15 @@ def frame_signal(
     return y.unfold(-1, n_fft, hop_length)
 
 
+def magnitude_power(mag2: torch.Tensor, power: float) -> torch.Tensor:
+    """|X|^2 -> |X|^power: as it is at 2, its root at 1, else ``** (power / 2)``."""
+    if power == 2.0:
+        return mag2
+    if power == 1.0:
+        return torch.sqrt(mag2)
+    return mag2 ** (power / 2.0)
+
+
 def power_spectrogram(
     y: torch.Tensor,
     *,
@@ -124,13 +133,16 @@ def power_spectrogram(
     """|STFT|**power of ``(..., n)`` signals -> ``(..., n_fft//2+1, n_frames)``.
 
     The matmul method never materializes a complex tensor: frames @ cos/sin
-    bases, square, add."""
+    bases, square, add. A bfloat16 signal meets the float32 bases in float32,
+    as the JAX package's promotion does."""
     win_length = n_fft if win_length is None else win_length
     frames = frame_signal(
         y, n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode
     )
     if method == "matmul":
         cos_b, sin_b = _rdft_bases_on(n_fft, window, win_length, frames.device)
+        dtype = torch.promote_types(frames.dtype, cos_b.dtype)
+        frames, cos_b, sin_b = frames.to(dtype), cos_b.to(dtype), sin_b.to(dtype)
         re = frames @ cos_b
         im = frames @ sin_b
         mag2 = re * re + im * im
@@ -140,10 +152,4 @@ def power_spectrogram(
         mag2 = spec.real**2 + spec.imag**2
     else:
         raise ValueError(f"unknown stft method {method!r}")
-    if power == 2.0:
-        out = mag2
-    elif power == 1.0:
-        out = torch.sqrt(mag2)
-    else:
-        out = mag2 ** (power / 2.0)
-    return out.transpose(-1, -2)
+    return magnitude_power(mag2, power).transpose(-1, -2)

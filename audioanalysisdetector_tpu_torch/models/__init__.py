@@ -1,6 +1,35 @@
-"""Models (PyTorch): the CNN-BiLSTM hybrid and its LSTM layers."""
+"""Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
+classifier and GMM scoring, and their LSTM layers."""
 
+from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+from audioanalysisdetector_tpu_torch.models.gmm import (
+    DiagGMM,
+    component_log_prob,
+    compute_llr,
+    from_numpy,
+    log_weighted,
+    masked_llr,
+    predict_proba,
+    score,
+    score_samples,
+    to_numpy,
+)
 from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM, LSTMLayer
 
-__all__ = ["BiLSTM", "CNNBiLSTMHybrid", "LSTMLayer"]
+__all__ = [
+    "BiLSTM",
+    "BiLSTMClassifier",
+    "CNNBiLSTMHybrid",
+    "DiagGMM",
+    "LSTMLayer",
+    "component_log_prob",
+    "compute_llr",
+    "from_numpy",
+    "log_weighted",
+    "masked_llr",
+    "predict_proba",
+    "score",
+    "score_samples",
+    "to_numpy",
+]

@@ -53,6 +53,15 @@
 // filter's nonzero bins only (a Slaney bin feeds at most two filters: ~2
 // FMAs per bin and row, against the DFT's 4 * n_fft) into a per-row mel
 // accumulator that stays in registers until the single store.
+//
+// Any mel configuration. |X|^2 is raised to power / 2 per bin before the
+// mel step (a kernel argument: unchanged at 2, sqrtf at 1, powf otherwise,
+// as the JAX chain's stft.py). More than 128 filters are cut into groups of
+// MC columns, one grid row (blockIdx.y) each: a group reads its own mel
+// blocks and writes columns [MC g, MC g + MC) of each output row, and
+// recomputes the DFT of its rows (simple; the cost is the group count).
+// bf16 waveforms take the hi-only bases and one product, as bf16 frames do;
+// bf16 rows off 16-byte alignment are staged by plain 2-byte loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +143,12 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(keep));
 }
 
+// |X|^2 -> |X|^power (power is uniform across the grid: no divergence)
+__device__ __forceinline__ float to_power(float mag2, float power) {
+  if (power == 2.f) return mag2;
+  return power == 1.f ? sqrtf(mag2) : powf(mag2, 0.5f * power);
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
 
 // (x0, x1) -> three packed bf16 pairs with x = p[0] + p[1] + p[2] exactly
@@ -196,12 +211,13 @@ template <typename T, int MC>
 constexpr int ring_depth = smem_bytes<T, MC>(4) <= SMEM_MAX ? 4 : 3;
 
 // T: element type of the frames (float: 3-part split, 6 products; bf16: 1).
-// MC: mel columns of the accumulator (64 or 128), n_mels <= MC.
+// MC: mel columns of the accumulator (64 or 128); grid row g computes
+// filters [MC g, MC g + MC) of n_mels.
 template <typename T, int MC>
 __global__ void __launch_bounds__(THREADS, 1)
 mel_core(const T* __restrict__ x, const __nv_bfloat16* __restrict__ bases,
          const float* __restrict__ mel, float* __restrict__ out, int n_rows, int n_frames,
-         long long n_pad, int hop, int n_fft, int n_tiles, int n_mels, int vec) {
+         long long n_pad, int hop, int n_fft, int n_tiles, int n_mels, float power, int vec) {
   constexpr int P = PARTS<T>;
   constexpr int STAGES = ring_depth<T, MC>;
   constexpr int B_STAGE = stage_b_elems<T>();
@@ -217,6 +233,8 @@ mel_core(const T* __restrict__ x, const __nv_bfloat16* __restrict__ bases,
   const int n_chunks = (n_fft + KC - 1) / KC;
   const int total = n_tiles * n_chunks;
   const long long row0 = (long long)blockIdx.x * ROWS;
+  const int col0 = blockIdx.y * MC;  // this group's first filter
+  mel += (size_t)blockIdx.y * n_tiles * M_BLOCK;  // its (tile) mel blocks
   if (tid < ROWS) {
     const long long r = row0 + tid;
     row_off[tid] = r < n_rows ? (r / n_frames) * n_pad + (r % n_frames) * (long long)hop : -1;
@@ -257,6 +275,15 @@ mel_core(const T* __restrict__ x, const __nv_bfloat16* __restrict__ bases,
         const long long off = row_off[row];
         const bool ok = off >= 0 && n < n_fft;
         cp_async4(adst + row * AS + (n - n0), ok ? x + off + n : x, ok ? 4 : 0);
+      }
+    } else {  // bf16 rows not 16-byte aligned: plain 2-byte loads, stored
+      // straight into the slot (its last reader passed the barrier of pair i)
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+      unsigned short* ds = reinterpret_cast<unsigned short*>(adst);
+      for (int e = tid; e < ROWS * KC; e += THREADS) {
+        const int row = e / KC, n = n0 + e % KC;
+        const long long off = row_off[row];
+        ds[row * AS + (n - n0)] = off >= 0 && n < n_fft ? xs[off + n] : (unsigned short)0;
       }
     }
   };
@@ -340,8 +367,8 @@ mel_core(const T* __restrict__ x, const __nv_bfloat16* __restrict__ bases,
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          pw[(prow_acc + 8 * (e / 2)) * PS + 8 * j + 2 * tq + e % 2] =
-              acc[4 * j + e] * acc[4 * j + e] + acc[4 * j + 32 + e] * acc[4 * j + 32 + e];
+          pw[(prow_acc + 8 * (e / 2)) * PS + 8 * j + 2 * tq + e % 2] = to_power(
+              acc[4 * j + e] * acc[4 * j + e] + acc[4 * j + 32 + e] * acc[4 * j + 32 + e], power);
 #pragma unroll
       for (int j = 0; j < 64; ++j) acc[j] = 0.f;  // the next tile's sums
       if (n_chunks < STAGES) cp_async_wait<0>();  // short n_fft: the mel block may be in flight
@@ -366,37 +393,36 @@ mel_core(const T* __restrict__ x, const __nv_bfloat16* __restrict__ bases,
   if (r < n_rows) {
 #pragma unroll
     for (int j = 0; j < MC / 2; ++j)
-      if (m0 + j < n_mels) out[r * n_mels + m0 + j] = macc[j];
+      if (col0 + m0 + j < n_mels) out[r * n_mels + col0 + m0 + j] = macc[j];
   }
 }
 
 template <typename T, int MC>
 cudaError_t launch(const T* x, const void* bases, const float* mel, float* out, int n_rows,
                    int n_frames, long long n_pad, int hop, int n_fft, int n_tiles, int n_mels,
-                   int vec, cudaStream_t stream) {
+                   float power, int vec, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, MC>(ring_depth<T, MC>);
   static_assert(smem <= SMEM_MAX);
   cudaError_t err = cudaFuncSetAttribute(mel_core<T, MC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((n_rows + ROWS - 1) / ROWS);
-  mel_core<T, MC><<<blocks, THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((n_rows + ROWS - 1) / ROWS), (unsigned)((n_mels + MC - 1) / MC));
+  mel_core<T, MC><<<grid, THREADS, smem, stream>>>(
       x, static_cast<const __nv_bfloat16*>(bases), mel, out,
-      n_rows, n_frames, n_pad, hop, n_fft, n_tiles, n_mels, vec);
+      n_rows, n_frames, n_pad, hop, n_fft, n_tiles, n_mels, power, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_any(const void* x, const void* bases, const void* mel, void* out, int n_rows,
                int n_frames, long long n_pad, int hop, int n_fft, int n_tiles, int n_mels,
-               void* stream) {
+               float power, void* stream) {
   if (n_rows < 0 || n_frames < 1 || n_pad < 1 || hop < 1 || n_fft < 1 || n_tiles < 1 ||
-      n_mels < 1 || n_mels > 128)
+      n_mels < 1)
     return (int)cudaErrorInvalidValue;
   // 16-byte copies need 16-byte-aligned row starts (chunk starts then are too)
   const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (n_pad * sizeof(T)) % 16 == 0 &&
                   (hop * sizeof(T)) % 16 == 0;
-  if (!vec && sizeof(T) != 4) return (int)cudaErrorMisalignedAddress;
   if (n_rows == 0) return (int)cudaSuccess;
   const T* xt = static_cast<const T*>(x);
   const float* m = static_cast<const float*>(mel);
@@ -404,36 +430,41 @@ int launch_any(const void* x, const void* bases, const void* mel, void* out, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_mels <= 64)
     return (int)launch<T, 64>(xt, bases, m, o, n_rows, n_frames, n_pad, hop, n_fft, n_tiles,
-                              n_mels, vec, s);
+                              n_mels, power, vec, s);
   return (int)launch<T, 128>(xt, bases, m, o, n_rows, n_frames, n_pad, hop, n_fft, n_tiles,
-                             n_mels, vec, s);
+                             n_mels, power, vec, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Device pointers: wav (B, n_pad)
-// float32; bases and mel the bf16 operands of ops/wave_mel.py::
-// _kernel_operands with split = true (n_tiles tiles of 64 live bins; mel
-// columns padded to 64 when n_mels <= 64, else 128); out (n_rows, n_mels)
-// float32 with n_rows = B * n_frames. Launches on `stream` and returns the
-// launch's cudaError_t (0 on success).
+// float32 with the bases of ops/wave_mel.py::_kernel_operands at split =
+// true when bf16 == 0, bfloat16 with the hi-only bases (split = false)
+// otherwise (n_tiles tiles of 64 live bins); mel the fp32 mel blocks, one
+// per (group, tile), columns padded to 64 when n_mels <= 64, else 128 per
+// group; out (n_rows, n_mels) float32 with n_rows = B * n_frames; power the
+// exponent of |X| (2: power, 1: magnitude). Launches on `stream` and returns
+// the launch's cudaError_t (0 on success).
 extern "C" int wave_mel_launch(const void* wav, const void* bases, const void* mel, void* out,
                                int n_rows, int n_frames, long long n_pad, int hop, int n_fft,
-                               int n_tiles, int n_mels, void* stream) {
+                               int n_tiles, int n_mels, float power, int bf16, void* stream) {
+  if (bf16)
+    return launch_any<__nv_bfloat16>(wav, bases, mel, out, n_rows, n_frames, n_pad, hop, n_fft,
+                                     n_tiles, n_mels, power, stream);
   return launch_any<float>(wav, bases, mel, out, n_rows, n_frames, n_pad, hop, n_fft, n_tiles,
-                           n_mels, stream);
+                           n_mels, power, stream);
 }
 
 // Second entry point (K2): frames (n_rows, row_stride >= n_fft) in place of
 // the waveform, each row one frame. frames are float32 with split bases when
-// bf16 == 0, and bfloat16 with hi-only bases otherwise (rows then 16-byte
-// aligned); mel and out as above.
+// bf16 == 0, and bfloat16 with hi-only bases otherwise; mel and out as
+// above, power 2.
 extern "C" int frames_mel_launch(const void* frames, const void* bases, const void* mel, void* out,
                                  int n_rows, int row_stride, int n_fft, int n_tiles, int n_mels,
                                  int bf16, void* stream) {
   if (bf16)
     return launch_any<__nv_bfloat16>(frames, bases, mel, out, n_rows, 1, row_stride, row_stride,
-                                     n_fft, n_tiles, n_mels, stream);
+                                     n_fft, n_tiles, n_mels, 2.f, stream);
   return launch_any<float>(frames, bases, mel, out, n_rows, 1, row_stride, row_stride, n_fft,
-                           n_tiles, n_mels, stream);
+                           n_tiles, n_mels, 2.f, stream);
 }

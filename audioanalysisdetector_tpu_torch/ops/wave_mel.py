@@ -9,6 +9,14 @@ all happen on chip, the products on the tensor cores with float32 operands
 split into three bf16 parts. The CUDA source is ``ops/csrc/wave_mel.cu`` (design and bounds in
 its header note); ``_kernel_operands`` builds the operands it reads.
 
+It takes every mel configuration the JAX chain computes: any ``power``
+(|X|^2 raised to ``power / 2`` per bin before the mel step), any
+``n_mels`` (filters in groups of at most 128 columns, one grid row each,
+each group recomputing the DFT of its rows) and float32 or bfloat16
+waveforms (bf16: the hi-only bases, one product per step, fp32 sums, as
+K2's bf16 frames). The result is float32 for both, the dtype the JAX chain
+returns for a bf16 waveform (its bf16 frames promote against f32 bases).
+
 ``wave_mel`` launches the kernel on a CUDA tensor and runs
 ``wave_mel_reference``, the plain PyTorch version of the same function, on
 a CPU tensor. There is no fallback: a failed build, a missing ``nvcc`` or a
@@ -26,11 +34,17 @@ import torch
 
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
-from audioanalysisdetector_tpu_torch.frontend.stft import _rdft_bases, center_pad, n_frames_for
+from audioanalysisdetector_tpu_torch.frontend.stft import (
+    _rdft_bases,
+    center_pad,
+    magnitude_power,
+    n_frames_for,
+)
 from audioanalysisdetector_tpu_torch.ops import _build
 
 K_TILE = 64  # bin padding of the plain version's bases (the JAX kernel's K_TILE)
-MAX_MELS = 128  # the kernel keeps at most 128 mel accumulators per row
+MAX_MELS = 128  # mel accumulators per row and group (K2 takes one group)
+DTYPES = (torch.float32, torch.bfloat16)  # waveform types the kernel takes
 N_TILE = 64  # live bins per kernel tile; must equal NB in csrc/wave_mel.cu
 K_CHUNK = 32  # samples per kernel stage; must equal KC in csrc/wave_mel.cu
 
@@ -97,8 +111,14 @@ def _bf16_parts(a: np.ndarray, n: int) -> torch.Tensor:
 
 
 def _mel_cols(n_mels: int) -> int:
-    """Mel accumulator columns: 64 up to 64 mels, else 128 (csrc/wave_mel.cu's MC)."""
+    """Mel accumulator columns of a group: 64 up to 64 mels, else 128
+    (csrc/wave_mel.cu's MC)."""
     return 64 if n_mels <= 64 else MAX_MELS
+
+
+def mel_groups(n_mels: int) -> int:
+    """Groups of ``_mel_cols`` filters the kernel's grid rows take."""
+    return -(-n_mels // _mel_cols(n_mels))
 
 
 @lru_cache(maxsize=None)
@@ -114,11 +134,12 @@ def _kernel_operands(
     samples, the windowed cos and sin columns of the tile's bins side by
     side (128 columns), transposed to K-major core matrices, in three bf16
     parts that sum to the float32 basis exactly (with ``split``; the first
-    part alone otherwise). ``mel`` is ``(n_tiles, N_TILE * cols +
-    cols)`` float32 with ``cols = _mel_cols(n_mels)``: the filterbank over
-    the tile's bins ``(N_TILE, cols)``, then for each filter the tile-local
-    ``[lo, hi)`` of its nonzero bins packed as the uint32 ``lo | hi << 16``
-    (bit-cast; empty for the padding columns)."""
+    part alone otherwise). ``mel`` is ``(n_groups * n_tiles, N_TILE * cols
+    + cols)`` float32 with ``cols = _mel_cols(n_mels)``, row ``g * n_tiles +
+    t`` the block of filters ``[cols g, cols g + cols)`` on tile ``t``: the
+    filterbank over the tile's bins ``(N_TILE, cols)``, then for each filter
+    the tile-local ``[lo, hi)`` of its nonzero bins packed as the uint32
+    ``lo | hi << 16`` (bit-cast; empty for the padding columns)."""
     cos_b, sin_b = _rdft_bases(cfg.n_fft, cfg.window, cfg.win_length or cfg.n_fft)
     n_freq = cos_b.shape[1]
     k_lo, k_hi = live_span(cfg)
@@ -133,15 +154,19 @@ def _kernel_operands(
     b = cs.reshape(2, n_chunks, K_CHUNK, n_tiles, N_TILE).transpose(3, 1, 0, 4, 2)
     b = _core_matrices(b.reshape(n_tiles, n_chunks, 2 * N_TILE, K_CHUNK))
 
-    cols = _mel_cols(cfg.n_mels)
-    weights = np.zeros((n_tiles, N_TILE, cols), np.float32)
-    weights.reshape(-1, cols)[live, : cfg.n_mels] = cfg.filterbank().T[bins[live]]
+    cols, n_groups = _mel_cols(cfg.n_mels), mel_groups(cfg.n_mels)
+    fbT = np.zeros((n_tiles * N_TILE, n_groups * cols), np.float32)
+    fbT[live, : cfg.n_mels] = cfg.filterbank().T[bins[live]]
+    # (bin, group, filter) -> (group, tile, bin, filter)
+    weights = fbT.reshape(n_tiles, N_TILE, n_groups, cols).transpose(2, 0, 1, 3)
     nz = weights != 0
-    any_nz = nz.any(axis=1)  # (tile, filter)
-    lo = np.where(any_nz, nz.argmax(axis=1), 0)
-    hi = np.where(any_nz, N_TILE - nz[:, ::-1].argmax(axis=1), 0)
+    any_nz = nz.any(axis=2)  # (group, tile, filter)
+    lo = np.where(any_nz, nz.argmax(axis=2), 0)
+    hi = np.where(any_nz, N_TILE - nz[:, :, ::-1].argmax(axis=2), 0)
+    rows = n_groups * n_tiles
     mel = np.concatenate(
-        [weights.reshape(n_tiles, -1), (lo | hi << 16).astype(np.uint32).view(np.float32)], axis=1
+        [weights.reshape(rows, -1), (lo | hi << 16).astype(np.uint32).reshape(rows, cols).view(np.float32)],
+        axis=1,
     )
     return _bf16_parts(b, 3 if split else 1).to(device), torch.from_numpy(mel).to(device), n_tiles
 
@@ -149,9 +174,10 @@ def _kernel_operands(
 @lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load_library("wave_mel").wave_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
-        ctypes.c_int
-    ] * 4 + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
 
@@ -159,12 +185,8 @@ def _kernel():
 def _check(wav_padded: torch.Tensor, cfg: MelConfig, n_frames: int) -> None:
     if wav_padded.dim() != 2:
         raise ValueError(f"expected (B, n_padded) waveforms, got {tuple(wav_padded.shape)}")
-    if wav_padded.dtype != torch.float32:
-        raise NotImplementedError(f"wave_mel takes float32, got {wav_padded.dtype}")
-    if cfg.power != 2.0:
-        raise NotImplementedError(f"wave_mel computes power 2 only, got {cfg.power}")
-    if cfg.n_mels > MAX_MELS:
-        raise NotImplementedError(f"wave_mel takes at most {MAX_MELS} mels, got {cfg.n_mels}")
+    if wav_padded.dtype not in DTYPES:
+        raise NotImplementedError(f"wave_mel takes float32 or bfloat16, got {wav_padded.dtype}")
     if not wav_padded.is_contiguous():
         raise ValueError("wave_mel needs a contiguous waveform tensor")
     if n_frames < 1 or (n_frames - 1) * cfg.hop_length + cfg.n_fft > wav_padded.shape[1]:
@@ -177,13 +199,17 @@ def wave_mel_reference(
     wav_padded: torch.Tensor, cfg: MelConfig = MelConfig(), *, n_frames: int
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: frames via ``unfold``, the two
-    DFT matmuls, |X|^2 and the mel matmul -> ``(B, n_frames, n_mels)``."""
+    DFT matmuls, |X|^power and the mel matmul -> ``(B, n_frames, n_mels)``
+    float32. A bf16 waveform meets bf16-rounded bases with fp32 sums."""
     _check(wav_padded, cfg, n_frames)
     cos_p, sin_p, mel_p = _operands_on(cfg, wav_padded.device)
     frames = wav_padded.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :n_frames]
+    if wav_padded.dtype == torch.bfloat16:
+        frames = frames.float()
+        cos_p, sin_p = (b.to(torch.bfloat16).float() for b in (cos_p, sin_p))
     re = frames @ cos_p
     im = frames @ sin_p
-    return (re * re + im * im) @ mel_p
+    return magnitude_power(re * re + im * im, cfg.power) @ mel_p
 
 
 def wave_mel(
@@ -204,7 +230,8 @@ def wave_mel(
     B, n_pad = wav_padded.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
-    bases, mel, n_tiles = _kernel_operands(cfg, wav_padded.device)
+    bf16 = wav_padded.dtype == torch.bfloat16
+    bases, mel, n_tiles = _kernel_operands(cfg, wav_padded.device, split=not bf16)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
     fn = _kernel()
     with torch.cuda.device(wav_padded.device):
@@ -220,6 +247,8 @@ def wave_mel(
             cfg.n_fft,
             n_tiles,
             cfg.n_mels,
+            float(cfg.power),
+            int(bf16),
             torch.cuda.current_stream(wav_padded.device).cuda_stream,
         )
     if rc != 0:

@@ -1,20 +1,24 @@
-"""End-to-end mel scoring: waveform batch -> spoof scores (PyTorch).
+"""End-to-end scoring: waveform batch -> spoof scores (PyTorch).
 
-Counterpart of the JAX package's ``score/e2e.py`` (the mel half):
-log-mel (a hand-written mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof
-probability, with nothing on the host between the waveform upload and the
-``(B,)`` scores.
+Counterpart of the JAX package's ``score/e2e.py``: log-mel (a hand-written
+mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof probability, and the
+flagship CQCC -> GMM ⊕ BiLSTM fused scorer, with nothing on the host
+between the waveform upload and the ``(B,)`` scores.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
+from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc, transpose_cqcc
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
 from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
+from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -39,6 +43,21 @@ def _init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
                 getattr(mod, name).uniform_(-b, b, generator=generator)
 
 
+def _checkpoint_state(checkpoint: str) -> dict[str, torch.Tensor]:
+    """A ``.msgpack`` payload of the JAX package's ``save_checkpoint``
+    (read without msgpack or flax, converted from the flax layout), or a
+    ``torch.save`` state dict (the port's own format)."""
+    if checkpoint.endswith(".msgpack"):
+        from audioanalysisdetector_tpu_torch.convert import flax_to_torch_cnn_bilstm
+        from audioanalysisdetector_tpu_torch.train.checkpoint import load_payload
+
+        payload = load_payload(checkpoint)
+        return flax_to_torch_cnn_bilstm(
+            {"params": payload["params"], "batch_stats": payload.get("batch_stats")}
+        )
+    return torch.load(checkpoint, map_location="cpu", weights_only=True)
+
+
 def init_mel_cnn_bilstm(
     mel_cfg: MelConfig,
     n_samples: int,
@@ -53,15 +72,15 @@ def init_mel_cnn_bilstm(
     travel together (inference needs both).
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)``. With
-    ``checkpoint``, a state dict saved by ``torch.save`` (the port's own
-    format) replaces them; when it carries no BatchNorm statistics the
-    initial ones stay, as in the JAX package."""
+    ``checkpoint`` — a JAX ``fit()`` payload (``best_model.msgpack``) or a
+    state dict saved by ``torch.save`` — its weights replace them; when it
+    carries no BatchNorm statistics the initial ones stay, as in the JAX
+    package."""
     t_frames = n_frames_for(n_samples, mel_cfg.hop_length, mel_cfg.n_fft, mel_cfg.center)
     model = CNNBiLSTMHybrid(t_frames)
     _init_params(model, torch.Generator().manual_seed(seed))
     if checkpoint:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        missing, unexpected = model.load_state_dict(state, strict=False)
+        missing, unexpected = model.load_state_dict(_checkpoint_state(checkpoint), strict=False)
         bn_stats = {"bn.running_mean", "bn.running_var", "bn.num_batches_tracked"}
         if unexpected or set(missing) - bn_stats:
             raise ValueError(
@@ -74,23 +93,63 @@ def init_mel_cnn_bilstm(
 def make_mel_cnn_bilstm_scorer(
     model: CNNBiLSTMHybrid,
     mel_cfg: MelConfig = MelConfig(sr=16000, n_mels=64),
+    *,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``(B, n_samples) -> (B,)`` spoof scores (sigmoid head), on the
     model's device, under ``torch.inference_mode()``. The waveforms are
-    scored in float32, the one type the mel kernels take.
+    cast to ``compute_dtype`` before the mel (float32, or bfloat16: K1's
+    bf16 route on the card); the features reach the model in float32.
 
-    Parity mode is full fp32: this sets
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-    ``torch.backends.cudnn.allow_tf32 = False`` for the whole process (the
-    second defaults to True and would run the Conv1d in TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    Parity mode is full fp32: this calls ``ieee_fp32`` (TF32 off for the
+    whole process)."""
+    ieee_fp32()
     model.eval()
 
     @torch.inference_mode()
     def score(wav: torch.Tensor) -> torch.Tensor:
-        feats = melspec_features(wav.to(torch.float32), mel_cfg)
-        out = model(feats)
+        feats = melspec_features(wav.to(compute_dtype), mel_cfg)
+        out = model(feats.float())
         return out.reshape(out.shape[0])
 
     return score
+
+
+def make_cqcc_fused_scorer(
+    model: torch.nn.Module,
+    gmm_genuine: DiagGMM,
+    gmm_spoof: DiagGMM,
+    cqcc_cfg: CQCCConfig = CQCCConfig(),
+    *,
+    scaler_mean: np.ndarray | torch.Tensor | None = None,
+    scaler_std: np.ndarray | torch.Tensor | None = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, n_samples) -> (B,)`` fused GMM ⊕ BiLSTM scores from raw audio,
+    on the device of the model and GMMs, under ``torch.inference_mode()``
+    with TF32 off: CQCC -> transpose -> scale -> fuse (the reference's full
+    scoring path) with no per-sample host round-trip."""
+    if (scaler_mean is None) != (scaler_std is None):
+        # half a scaler silently skips standardization and every
+        # downstream score is quietly wrong
+        raise ValueError("pass BOTH scaler_mean and scaler_std, or neither")
+    ieee_fp32()
+    model.eval()
+    device = gmm_genuine.means.device
+    scale = None
+    if scaler_mean is not None:
+        scale = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
+                      for a in (scaler_mean, scaler_std))
+
+    @torch.inference_mode()
+    def score(wav: torch.Tensor) -> torch.Tensor:
+        feats = transpose_cqcc(cqcc(wav, cqcc_cfg))  # (B, T, 19)
+        if scale is not None:
+            feats = (feats - scale[0]) / scale[1]
+        return fused_scores(model, gmm_genuine, gmm_spoof, feats)
+
+    return score
+
+
+def make_e2e_train_step_inputs(wav: torch.Tensor, cqcc_cfg: CQCCConfig) -> torch.Tensor:
+    """Featurize waveforms for the flagship trainer: (B, n) -> (B, 19, T)."""
+    return cqcc(wav, cqcc_cfg)

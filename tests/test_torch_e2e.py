@@ -65,6 +65,27 @@ def test_slice_scores_match_jax(profile):
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
+@pytest.mark.parametrize("profile", ["parity", "speech"])
+def test_bf16_compute_dtype_scores_match_jax(profile):
+    """``compute_dtype=bfloat16``: the waveform is rounded to bf16 before
+    the mel in both packages. On the CPU both chains then meet the bf16
+    samples with f32 bases (JAX's promotion), so the float32 tolerance
+    holds; K1's bf16 route on the card (bf16 bases) is held to its plain
+    version by chip_smoke.py."""
+    cfg = MelConfig.for_profile(profile)
+    T = 1 + 32000 // cfg.hop_length
+    variables = random_flax_cnn_bilstm(1, T)
+    model = CNNBiLSTMHybrid(T)
+    model.load_state_dict(flax_to_torch_cnn_bilstm(variables))
+    wav = _wav(3, seed=5)
+    ours = make_mel_cnn_bilstm_scorer(model, cfg, compute_dtype=torch.bfloat16)(torch.from_numpy(wav)).numpy()
+    ref = j_make_scorer(JCNNBiLSTMHybrid().apply, variables, jmel.MelConfig.for_profile(profile),
+                        compute_dtype=jnp.bfloat16)(jnp.asarray(wav))
+    np.testing.assert_allclose(ours, np.asarray(ref), rtol=0, atol=SCORE_TOL)
+    f32 = make_mel_cnn_bilstm_scorer(model, cfg)(torch.from_numpy(wav)).numpy()
+    assert np.abs(ours - f32).max() > 0  # the cast took effect
+
+
 def test_init_is_seeded_and_checkpoint_round_trips(tmp_path):
     cfg = MelConfig.for_speech()
     a = init_mel_cnn_bilstm(cfg, 32000, seed=3, device="cpu")

@@ -39,6 +39,8 @@ NARROW = dict(n_fft=400, hop_length=160, fmin=300.0, fmax=6000.0)
 
 
 def _config(name: str) -> tmel.MelConfig:
+    if name == "mels256":  # two groups of 128 filters
+        return tmel.MelConfig.for_speech(n_mels=256)
     return tmel.MelConfig(**NARROW) if name == "narrow" else tmel.MelConfig.for_profile(name)
 
 
@@ -51,11 +53,13 @@ def _decode(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
 
 
 def _mel_block(cfg):
-    """The mel operand split into weights ``(n_tiles, 64, cols)`` and the
-    spans ``(n_tiles, cols, 2)``."""
+    """The mel operand split into weights ``(n_groups * n_tiles, 64, cols)``
+    and the spans ``(n_groups * n_tiles, cols, 2)``, row ``g * n_tiles + t``
+    the block of filter group ``g`` on tile ``t``."""
     _, mel, n_tiles = twm._kernel_operands(cfg, CPU)
     cols = mel.shape[1] // (twm.N_TILE + 1)
-    weights = mel[:, : twm.N_TILE * cols].reshape(n_tiles, twm.N_TILE, cols).numpy()
+    assert mel.shape[0] == twm.mel_groups(cfg.n_mels) * n_tiles
+    weights = mel[:, : twm.N_TILE * cols].reshape(-1, twm.N_TILE, cols).numpy()
     packed = mel[:, twm.N_TILE * cols :].numpy().view(np.uint32)
     return weights, np.stack([packed & 0xFFFF, packed >> 16], axis=-1)
 
@@ -70,7 +74,9 @@ def _dense(cfg, split: bool):
     b = _decode(bases, 2 * twm.N_TILE, twm.K_CHUNK)  # (tile, chunk, part, 128, KC)
     b = b.permute(2, 1, 4, 0, 3).reshape(parts, nch * twm.K_CHUNK, nt * 2 * twm.N_TILE)
     weights, _ = _mel_block(cfg)
-    return b, torch.from_numpy(weights.reshape(nt * twm.N_TILE, -1)[:, : cfg.n_mels])
+    # (group, tile, bin, filter) -> (tile, bin, group, filter): the groups' columns side by side
+    w = weights.reshape(-1, nt, twm.N_TILE, weights.shape[-1]).transpose(1, 2, 0, 3)
+    return b, torch.from_numpy(np.ascontiguousarray(w).reshape(nt * twm.N_TILE, -1)[:, : cfg.n_mels])
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +159,7 @@ def test_split_bases_reconstruct_the_f32_bases(name):
     np.testing.assert_array_equal(m.numpy(), mel)
 
 
-@pytest.mark.parametrize("name", ["parity", "speech", "narrow"])
+@pytest.mark.parametrize("name", ["parity", "speech", "narrow", "mels256"])
 def test_mel_spans_cover_exactly_the_nonzero_weights(name):
     """The kernel sums each filter over its tile-local span only: every
     nonzero weight lies inside, and the span ends on nonzero weights."""
@@ -217,3 +223,17 @@ def test_operands_pad_mel_columns_past_64():
     fb = cfg.filterbank().T[k_lo : k_lo + n_tiles * twm.N_TILE].astype(np.float32)
     np.testing.assert_array_equal(weights.reshape(-1, 128)[: len(fb), :80], fb)
     assert not weights[..., 80:].any() and not spans[:, 80:].any()
+
+
+def test_grouped_mel_blocks_emulate_256_mels():
+    """256 filters take two grid rows of 128: the grouped mel blocks,
+    decoded and emulated, give JAX's 256-mel melspectrogram."""
+    tcfg, jcfg = _config("mels256"), jmel.MelConfig.for_speech(n_mels=256)
+    y = _wave(2, seed=9)
+    T = 1 + y.shape[1] // tcfg.hop_length
+    wp = np.pad(y, ((0, 0), (tcfg.n_fft // 2, tcfg.n_fft // 2)), mode="reflect")
+    frames = torch.from_numpy(wp).unfold(-1, tcfg.n_fft, tcfg.hop_length)[:, :T]
+    ours = _emulate(frames.reshape(-1, tcfg.n_fft).numpy(), tcfg).reshape(2, T, -1)
+    ref = np.asarray(jmel.melspectrogram(jnp.asarray(y), jcfg)).transpose(0, 2, 1)
+    assert ours.shape == ref.shape == (2, T, 256)
+    assert _rel(ours, ref, (1, 2)) < SPLIT_TOL

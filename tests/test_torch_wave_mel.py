@@ -96,11 +96,46 @@ def test_wave_mel_refuses_what_the_kernel_does_not_take():
     T = 1 + 32000 // cfg.hop_length
     with pytest.raises(ValueError, match="too short"):
         twm.wave_mel(wp, cfg, n_frames=T + 1)
-    with pytest.raises(NotImplementedError, match="power 2"):
-        twm.wave_mel(wp, tmel.MelConfig(n_fft=512, hop_length=256, power=1.0), n_frames=T)
-    with pytest.raises(NotImplementedError, match="float32"):
+    # any power, any n_mels and bf16 are taken (the JAX chain computes them)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         twm.wave_mel(wp.double(), cfg, n_frames=T)
     with pytest.raises(ValueError, match="contiguous"):
         twm.wave_mel(wp.t().contiguous().t(), cfg, n_frames=T)
     with pytest.raises(NotImplementedError, match="no path"):
         twm.wave_mel(wp.to("meta"), cfg, n_frames=T)
+
+
+# the bf16 plain version against the JAX chain in bf16: both read the same
+# bf16 samples, but the plain version (the kernel's function) meets them with
+# bf16-rounded bases (2^-9 relative per basis value) where JAX keeps f32
+# bases; relative to each utterance's max mel power (it reads 1.5e-3 at
+# n_fft 512, 0.9e-3 at 2048)
+BF16_REL_TOL = 5e-3
+
+
+@pytest.mark.parametrize(
+    "case,overrides,dtype,tol",
+    [
+        ("power1", dict(power=1.0), torch.float32, REL_TOL),
+        ("power1.5", dict(power=1.5), torch.float32, REL_TOL),
+        ("mels256", dict(n_mels=256), torch.float32, REL_TOL),
+        ("bf16", {}, torch.bfloat16, BF16_REL_TOL),
+    ],
+)
+def test_widened_reference_matches_jax_melspectrogram(case, overrides, dtype, tol):
+    """What K1 used to refuse: its plain version against JAX
+    ``melspectrogram`` (the XLA chain) on the same samples."""
+    tcfg = tmel.MelConfig(n_fft=512, hop_length=256, **overrides)
+    jcfg = jmel.MelConfig(n_fft=512, hop_length=256, **overrides)
+    y = _wave(3, seed=4)
+    T = 1 + y.shape[1] // tcfg.hop_length
+    yt = torch.from_numpy(y).to(dtype)
+    ours = twm.wave_mel(center_pad(yt, tcfg.n_fft).contiguous(), tcfg, n_frames=T)
+    assert ours.dtype == torch.float32
+    jy = jnp.asarray(y, dtype=jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    ref = np.asarray(jmel.melspectrogram(jy, jcfg), np.float32).transpose(0, 2, 1)
+    assert ours.shape == ref.shape == (3, T, tcfg.n_mels)
+    assert _rel(ours.numpy(), ref) < tol
+    # the frontend's CPU chain is the JAX function itself (f32 bases)
+    mel = tmel.melspectrogram(yt, tcfg).numpy().transpose(0, 2, 1)
+    assert _rel(mel, ref) < REL_TOL
