@@ -2,6 +2,7 @@
 
   score   log-mel + CNN-BiLSTM spoof scoring over a directory of WAV/FLAC files
   serve   HTTP scoring service: dynamic micro-batching in front of one card
+  train   CNN-BiLSTM training run on log-mel features (one device)
 
 The flags are those of the JAX package's commands, plus ``--device``.
 Multi-device data parallelism (``serve --data-parallel on``) and
@@ -17,6 +18,8 @@ import json
 import os
 import sys
 
+import numpy as np
+
 
 def _collect_wavs(path: str) -> list[str]:
     """All WAV/FLAC files under a directory, or a glob's matches."""
@@ -26,6 +29,78 @@ def _collect_wavs(path: str) -> list[str]:
             + globlib.glob(os.path.join(path, "**", "*.flac"), recursive=True)
         )
     return sorted(globlib.glob(path))
+
+
+def _shuffle(paths: list[str], seed: int) -> list[str]:
+    """Deterministic shuffle before head/tail splits — sorted collection
+    groups labels by directory, which would otherwise yield one-class splits."""
+    idx = np.random.default_rng(seed).permutation(len(paths))
+    return [paths[i] for i in idx]
+
+
+def _labels_from_dirnames(paths: list[str]) -> np.ndarray:
+    """label = 1 iff any parent directory is named 'spoof'/'fake'."""
+    return np.asarray(
+        [1 if any(seg in ("spoof", "fake") for seg in p.split(os.sep)) else 0 for p in paths],
+        dtype=np.int64,
+    )
+
+
+def _load_batch(paths: list[str], seconds: float, sr: int) -> tuple[list[str], np.ndarray]:
+    """Decode fixed-length clips with the threaded native decoder; unreadable
+    files are dropped with a warning. Returns (kept_paths, (B, n) float32)."""
+    from audioanalysisdetector_tpu_torch.io.native_loader import load_chunk_batch_native
+
+    out, ok = load_chunk_batch_native(
+        paths, [0.0] * len(paths), [float(seconds)] * len(paths), sr=sr, return_ok=True
+    )
+    for p, good in zip(paths, ok):
+        if not good:
+            print(f"WARNING: cannot read {p}: skipped", file=sys.stderr)
+    return [p for p, good in zip(paths, ok) if good], out[ok]
+
+
+def cmd_train(args) -> int:
+    """The JAX package's ``cli train`` on ``--device``: decode, log-mel once
+    (the mel kernel on the card, under ``torch.no_grad()``), the seeded
+    80/20 split, ``CNNBiLSTMHybrid(logits=True)`` from the flax-like init,
+    ``fit`` with BCE, ``evaluate`` on the best state, one JSON line of
+    metrics on stdout, the run's kernel launch counts on stderr."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
+    from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+    from audioanalysisdetector_tpu_torch.models.layers import flax_init_
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.train import TrainState, evaluate, fit, make_optimizer
+
+    paths = _collect_wavs(args.audio)
+    if len(paths) < 4:
+        print("need at least 4 WAVs (with 'spoof'/'fake' dirs for labels)", file=sys.stderr)
+        return 1
+    paths, wav = _load_batch(_shuffle(paths, args.seed), args.seconds, args.sr)
+    if len(paths) < 4:
+        print(f"only {len(paths)} files decoded successfully — need at least 4", file=sys.stderr)
+        return 1
+    y = torch.from_numpy(_labels_from_dirnames(paths)).to(args.device)
+    mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
+    with torch.no_grad():
+        feats = log_mel_spectrogram(torch.from_numpy(wav).to(args.device), mel_cfg)
+    split = max(int(len(paths) * 0.8), 1)
+    model = CNNBiLSTMHybrid(feats.shape[-1], logits=True)
+    flax_init_(model, torch.Generator().manual_seed(args.seed))
+    state = TrainState.create(model=model.to(args.device), tx=make_optimizer(args.optimizer, args.lr))
+    result = fit(
+        state, (feats[:split], y[:split]), (feats[split:], y[split:]),
+        loss_name="BCELoss", num_epochs=args.epochs, batch_size=args.batch_size,
+        seed=args.seed, run_dir=args.run_dir, binary_head=True, verbose=True,
+    )
+    metrics = evaluate(
+        result.best_state, (feats[split:], y[split:]), loss_name="BCELoss", binary_head=True
+    )
+    print(json.dumps(metrics))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
 
 
 def cmd_score(args) -> int:
@@ -179,6 +254,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="score with randomly initialized weights (smoke tests only)",
     )
     sp.set_defaults(fn=cmd_score)
+
+    sp = sub.add_parser("train", help="CNN-BiLSTM training run")
+    sp.add_argument("audio", help="WAV/FLAC directory or glob ('spoof'/'fake' dirs are label 1)")
+    mel_flags(sp)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--epochs", type=int, default=5)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--lr", type=float, default=1e-4)
+    sp.add_argument("--optimizer", default="Adam", help="Adam, AdamW, SGD or RMSprop")
+    sp.add_argument("--run-dir", default="runs/cnn_bilstm")
+    sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser(
         "serve", help="HTTP scoring service with dynamic micro-batching"

@@ -15,6 +15,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
     score_samples,
     to_numpy,
 )
+from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM, LSTMLayer
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "LSTMLayer",
     "component_log_prob",
     "compute_llr",
+    "flax_init_",
     "from_numpy",
     "log_weighted",
     "masked_llr",

@@ -9,11 +9,15 @@
 Import from the kernel's own module (``ops.wave_mel``): it also holds the
 kernel's launch counter, which a re-export here would shadow.
 ``launch_counts`` and ``reset_launch_counts`` read and zero every counter.
+``refuse_grad`` is the check each wrapper makes before a launch: no kernel
+has a backward.
 """
 
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 # kernel name -> module holding its wrapper and ``launches`` counter
 KERNELS = {
@@ -35,3 +39,16 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in KERNELS:
         _module(name).launches = 0
+
+
+def refuse_grad(x: torch.Tensor, kernel: str) -> None:
+    """Raise when autograd would need ``kernel``'s backward: grad mode is on
+    and ``x`` requires grad. The kernels, like the JAX package's Pallas
+    kernels, have none, and a launch through ctypes would cut the gradient
+    silently (the plain versions on the CPU keep it)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{kernel}: the mel kernels have no backward, as the JAX package's "
+            "Pallas kernels have none, and this input requires grad; extract "
+            "features under torch.no_grad()"
+        )

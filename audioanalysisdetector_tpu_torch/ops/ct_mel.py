@@ -38,7 +38,7 @@ import torch
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import _window_array, center_pad
-from audioanalysisdetector_tpu_torch.ops import _build
+from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
 
 N1 = 64  # in-chunk offset / stage-C DFT length
 N2 = 32  # chunk index / stage-A DFT length
@@ -223,6 +223,7 @@ def ct_mel(
         if wav_padded.device.type != "cpu":
             raise NotImplementedError(f"ct_mel has no path for {wav_padded.device}")
         return ct_mel_reference(wav_padded, cfg, n_frames=n_frames)
+    refuse_grad(wav_padded, "ct_mel")
     B, n_pad = wav_padded.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")

@@ -27,7 +27,7 @@ import torch
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import frame_signal
-from audioanalysisdetector_tpu_torch.ops import _build
+from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
 from audioanalysisdetector_tpu_torch.ops.wave_mel import MAX_MELS, _kernel_operands, _operands_on
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -94,6 +94,7 @@ def fused_mel_from_frames(
         if frames.device.type != "cpu":
             raise NotImplementedError(f"fused_mel_from_frames has no path for {frames.device}")
         return fused_mel_from_frames_reference(frames, cfg, compute_dtype=compute_dtype)
+    refuse_grad(frames, "fused_mel_from_frames")
     n = frames.shape[0]
     if n >= 2**31:
         raise ValueError(f"{n} frame rows overflow the kernel's int row index")

@@ -40,7 +40,7 @@ from audioanalysisdetector_tpu_torch.frontend.stft import (
     magnitude_power,
     n_frames_for,
 )
-from audioanalysisdetector_tpu_torch.ops import _build
+from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
 
 K_TILE = 64  # bin padding of the plain version's bases (the JAX kernel's K_TILE)
 MAX_MELS = 128  # mel accumulators per row and group (K2 takes one group)
@@ -227,6 +227,7 @@ def wave_mel(
         if wav_padded.device.type != "cpu":
             raise NotImplementedError(f"wave_mel has no path for {wav_padded.device}")
         return wave_mel_reference(wav_padded, cfg, n_frames=n_frames)
+    refuse_grad(wav_padded, "wave_mel")
     B, n_pad = wav_padded.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")

@@ -1,4 +1,4 @@
-"""A numpy-only reader of flax's msgpack checkpoints (no ``msgpack``, no ``flax``).
+"""A numpy-only reader and writer of flax's msgpack checkpoints (no ``msgpack``, no ``flax``).
 
 The JAX package writes checkpoints with ``flax.serialization.to_bytes``
 (``train/checkpoint.py::save_checkpoint``): a msgpack document of maps,
@@ -17,6 +17,12 @@ returns what ``flax.serialization.msgpack_restore`` returns:
 
 numpy has no bfloat16: such a leaf is read through ``uint16`` and returned
 as a ``torch.bfloat16`` tensor of the same shape (a 0-d tensor for a scalar).
+
+``to_bytes`` is the inverse, ``flax.serialization.to_bytes`` of a state dict
+without flax or msgpack: the same bytes for the same tree (dicts in their
+insertion order, each value in msgpack's smallest encoding, arrays over
+``MAX_CHUNK_SIZE`` bytes chunked as flax chunks them). A ``torch.bfloat16``
+tensor is written as flax writes a bfloat16 array.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+# flax.serialization.MAX_CHUNK_SIZE: arrays over it are written in chunks
+MAX_CHUNK_SIZE = 2**30
 
 
 class MsgpackFormatError(ValueError):
@@ -155,3 +163,127 @@ def _unchunk_leaves(d):
 def msgpack_restore(data: bytes):
     """``flax.serialization.msgpack_restore`` without flax or msgpack."""
     return _unchunk_leaves(loads(data))
+
+
+def _sized(out: list, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A length header: the fix form below ``fix_max``, else the 8/16/32-bit
+    form (``codes`` lists the type bytes with 8 bits first, or 16 first)."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+        return
+    widths = ((0xFF, ">B"), (0xFFFF, ">H"), (0xFFFFFFFF, ">I"))[3 - len(codes):]
+    for (limit, fmt), code in zip(widths, codes):
+        if n <= limit:
+            out.append(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise MsgpackFormatError(f"{n} items or bytes are too many for msgpack")
+
+
+def _int(out: list, v: int) -> None:
+    if -32 <= v <= 0x7F:
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+        return
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v > 0 else (
+        (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        try:
+            out.append(bytes([code]) + struct.pack(fmt, v))
+            return
+        except struct.error:
+            continue
+    raise MsgpackFormatError(f"integer {v} does not fit 64 bits")
+
+
+def _ext(out: list, code: int, data: bytes) -> None:
+    n = len(data)
+    if n in (1, 2, 4, 8, 16):
+        out.append(bytes([0xD4 + (n.bit_length() - 1), code & 0xFF]))
+    else:
+        _sized(out, n, None, -1, (0xC7, 0xC8, 0xC9))
+        out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _array_bytes(a: np.ndarray | torch.Tensor) -> bytes:
+    """flax's array payload: a packed (shape, dtype name, C-order bytes)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != torch.bfloat16:
+            return _array_bytes(a.detach().cpu().numpy())
+        bits = a.detach().cpu().contiguous().view(torch.int16).numpy()
+        return dumps((list(a.shape), "bfloat16", bits.astype("<i2").tobytes()))
+    if a.dtype.hasobject:
+        raise MsgpackFormatError("object arrays are not serialisable")
+    return dumps((list(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _pack(out: list, v) -> None:
+    if v is None or isinstance(v, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[v])
+    elif isinstance(v, np.generic):  # before int and float: np.float64 is a float
+        _ext(out, _EXT_NPSCALAR, _array_bytes(np.asarray(v)))
+    elif isinstance(v, int):
+        _int(out, v)
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        data = v.encode("utf-8")
+        _sized(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(v, (bytes, bytearray)):
+        _sized(out, len(v), None, -1, (0xC4, 0xC5, 0xC6))
+        out.append(bytes(v))
+    elif isinstance(v, (list, tuple)):
+        _sized(out, len(v), 0x90, 15, (0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, dict):
+        _sized(out, len(v), 0x80, 15, (0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, (np.ndarray, torch.Tensor)):
+        _ext(out, _EXT_NDARRAY, _array_bytes(v))
+    elif isinstance(v, complex):
+        _ext(out, _EXT_COMPLEX, dumps((v.real, v.imag)))
+    else:
+        raise MsgpackFormatError(f"cannot serialise {type(v).__name__}")
+
+
+def dumps(obj) -> bytes:
+    """Python values (flax's ext types included) -> one msgpack document."""
+    out: list[bytes] = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.size * a.dtype.itemsize
+
+
+def _chunk(a):
+    """An oversized array as flax's chunk map."""
+    itemsize = a.element_size() if isinstance(a, torch.Tensor) else a.dtype.itemsize
+    chunk = max(1, int(MAX_CHUNK_SIZE / itemsize))
+    flat = a.reshape(-1)
+    n = flat.shape[0]
+    return {_CHUNKED: True, "shape": {str(i): int(d) for i, d in enumerate(a.shape)},
+            "chunks": {str(j): flat[i : i + chunk] for j, i in enumerate(range(0, n, chunk))}}
+
+
+def _chunked(tree, top: bool = True):
+    """The tree with oversized arrays chunked where flax chunks them (the
+    top level and dict values), as a copy."""
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return _chunk(tree) if top and _nbytes(tree) > MAX_CHUNK_SIZE else tree
+    if isinstance(tree, dict):
+        return {k: _chunked(v, isinstance(v, (np.ndarray, torch.Tensor, dict))) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_chunked(v, False) for v in tree)
+    return tree
+
+
+def to_bytes(state_dict) -> bytes:
+    """``flax.serialization.to_bytes`` of a state dict (its
+    ``msgpack_serialize(state_dict, in_place=True)``) without flax or
+    msgpack: dicts keep their insertion order."""
+    return dumps(_chunked(state_dict))

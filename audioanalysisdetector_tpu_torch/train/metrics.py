@@ -3,13 +3,14 @@
 Counterpart of the host half of the JAX package's ``train/metrics.py``. The
 reference computes EER from sklearn's ROC as ``fpr[argmin |fnr - fpr|]``
 (reference/ASV_dl_func.py:860-869, :1503-1506), the *unbalanced* variant
-that picks the FPR at the crossover threshold; kept exactly. The on-device
-``eer_jnp`` waits for ROADMAP Queue 1 step 7 (training).
+that picks the FPR at the crossover threshold; kept exactly. ``eer_tensor``
+is the on-device counterpart of the JAX package's ``eer_jnp``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def roc_curve_np(y_true: np.ndarray, scores: np.ndarray, *, drop_intermediate: bool = True):
@@ -82,3 +83,24 @@ def model_result_metrics(y_true, y_pred, scores=None) -> dict[str, float]:
     if scores is not None:
         out["eer"] = eer(y_true, scores)
     return out
+
+
+def eer_tensor(y_true: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Fixed-size EER on the scores' device (every score a threshold): the
+    JAX package's ``eer_jnp``, an approximation of the host ``eer`` for
+    in-loop monitoring (float32 scores, no drop-intermediate thinning).
+    FPR and FNR come from an (N, N) comparison; a 0-d tensor."""
+    y = y_true.to(torch.bool)
+    s = scores.to(torch.float32)
+    # thresholds descending, so argmin's first-occurrence tie rule matches
+    # the host's candidate order; the virtual (fpr, fnr) = (0, 1) point
+    # mirrors the host curve's leading max+1 row
+    thr = torch.sort(s, descending=True).values
+    ge = s[None, :] >= thr[:, None]  # [t, i]
+    p = y.sum().clamp_min(1)
+    n = (~y).sum().clamp_min(1)
+    tpr = (ge & y[None, :]).sum(dim=1) / p
+    fpr = (ge & ~y[None, :]).sum(dim=1) / n
+    fpr = torch.cat([fpr.new_zeros(1), fpr])
+    fnr = torch.cat([tpr.new_ones(1), 1.0 - tpr])
+    return fpr[torch.argmin((fnr - fpr).abs())]

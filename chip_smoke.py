@@ -54,7 +54,18 @@ each print their lines:
    GMMs); ``eval_model`` over a model dir written with ``to_numpy``, on the
    card and on the CPU. The path reaches no TPU kernel (XLA computed it in
    the JAX package), so it runs plain PyTorch: cuBLAS, cuDNN;
-10. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+10. train: 8192 two-second utterances made on the card (bonafide noise,
+    spoof noise plus a seeded tone), log-mel at parity through K3 under
+    ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
+    converted init, dropout 0, on the card against the CPU (losses and
+    BatchNorm statistics); ``fit`` for 2 epochs at batch 256 (80/20 split,
+    Adam 1e-4) whose train loss must fall; ms per train step and train
+    utt/s at batch 256 and 16 with a ``device_breakdown`` of one step;
+    ``bilstm_pipeline`` (hidden 128) on the phase's CQCC features, card
+    against CPU over 3 steps; the ``train`` CLI over 64 WAVs in a
+    subprocess, its ``best_model.msgpack`` read by the ``score`` CLI; the
+    grad guard: each mel kernel refuses an input that requires grad;
+11. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -93,6 +104,7 @@ from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc, tran
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import (
     MelConfig,
+    log_mel_spectrogram,
     mel_route,
     melspectrogram,
 )
@@ -111,6 +123,7 @@ from audioanalysisdetector_tpu_torch.io.native_loader import (
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import from_numpy, to_numpy
+from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm  # the modules: counters
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
@@ -121,6 +134,14 @@ from audioanalysisdetector_tpu_torch.score.e2e import (
     make_mel_cnn_bilstm_scorer,
 )
 from audioanalysisdetector_tpu_torch.score.fused import make_fused_scorer
+from audioanalysisdetector_tpu_torch.train import (
+    TrainState,
+    bilstm_pipeline,
+    fit,
+    get_loss,
+    make_optimizer,
+    make_train_step,
+)
 from audioanalysisdetector_tpu_torch.train.gmm_system import eval_model, make_gmm_feature_fn
 from audioanalysisdetector_tpu_torch.serve.server import (
     BatchingScorer,
@@ -164,6 +185,19 @@ SERVE_TOL = 1e-5
 # fused scores, card vs the port on the CPU: fp32 CQT, GMM and LSTM chains
 # summed in other orders, through the CQCC's log(dB^2 + 1e-12) quirk
 FUSED_TOL = 1e-4
+# train steps, card vs the CPU from the same weights on the same batches
+# (dropout 0, Adam 1e-4): the losses of 5 steps relative to their size, and
+# the BatchNorm running statistics after them relative to their largest
+# entry. Adam's first steps move every weight by about lr whatever its
+# gradient's size, so a conv weight whose gradient is near its rounding
+# noise (and the conv bias, whose gradient is zero in exact arithmetic
+# under the BatchNorm) can step apart by 2 lr on the two devices; the conv
+# outputs, of inputs ~40 dB in size, and their running statistics carry
+# that (an H100 read 3.4e-4 of the largest mean and 1.1e-4 of the largest
+# variance), while the losses stay within ~1e-6
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_BN_RTOL = 2e-3
+TRAIN_ROWS, TRAIN_BATCH = 8192, 256
 KERNEL_SOURCES = {
     "wave_mel": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/wave_mel.py:63"),
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
@@ -266,12 +300,28 @@ def device_breakdown(fn, iters: int = 5, top: int = 8) -> tuple[float, float, li
         torch.cuda.synchronize()
     per_kernel: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation (the optimizer's step range) spans kernels counted here
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             acc = per_kernel.setdefault(e.name, [0.0, 0])
             acc[0] += e.device_time_total / 1e3 / iters
             acc[1] += 1
     ranked = sorted(((ms, n // iters, name) for name, (ms, n) in per_kernel.items()), reverse=True)
     return wall, sum(ms for ms, _, _ in ranked), ranked[:top]
+
+
+def host_ops(fn, iters: int = 5, top: int = 8) -> list:
+    """Where one call of ``fn`` spends host time: the ``top`` operators by
+    self CPU time per call, as (ms, calls, name), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = [(e.self_cpu_time_total / 1e3 / iters, e.count // iters, e.key) for e in prof.key_averages()]
+    return sorted(ops, reverse=True)[:top]
 
 
 def bound_fields(t: dict, bound: dict) -> dict:
@@ -909,6 +959,220 @@ def phase_fused() -> dict:
     return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff}
 
 
+def train_corpus(n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wav (n, N_SAMPLES), labels (n,)) made on the card from a seed:
+    bonafide rows are noise; spoof rows are noise plus a tone of seeded
+    frequency (300-3000 Hz), so the classes separate."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    y = torch.randint(0, 2, (n,), generator=g, device=DEVICE)
+    wav = 0.1 * torch.randn((n, N_SAMPLES), generator=g, device=DEVICE)
+    f0 = 300.0 + 2700.0 * torch.rand((n, 1), generator=g, device=DEVICE)
+    t = torch.arange(N_SAMPLES, device=DEVICE) / SR
+    return wav + 0.1 * y[:, None] * torch.sin(2 * np.pi * f0 * t), y
+
+
+def steps_card_vs_cpu(model_fn, x: torch.Tensor, y: torch.Tensor, loss: str, binary: bool, n: int):
+    """``n`` train steps (Adam 1e-4) of one model on the card and on the CPU
+    from the same weights on the same batches of TRAIN_BATCH rows: (card
+    losses, CPU losses, card state, CPU state)."""
+    out = []
+    for device in (DEVICE, "cpu"):
+        state = TrainState.create(model=model_fn().to(device), tx=make_optimizer("Adam", 1e-4))
+        step = make_train_step(get_loss(loss), has_batch_stats=state.has_batch_stats, binary_head=binary)
+        g = torch.Generator(device=device).manual_seed(0)
+        losses = []
+        for i in range(n):
+            rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            state, m = step(state, x[rows].to(device), y[rows].to(device), g)
+            losses.append(float(m["loss"]))
+        out.append((np.asarray(losses), state))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def step_timing(label: str, model_fn, x: torch.Tensor, y: torch.Tensor, loss: str, binary: bool) -> dict:
+    """ms per train step (CUDA events over 20 steps after 3 warm-up ones) at
+    batch 256 and 16, train utt/s, and a ``device_breakdown`` of one step."""
+    out = {}
+    for batch in (TRAIN_BATCH, 16):
+        state = TrainState.create(model=model_fn().to(DEVICE), tx=make_optimizer("Adam", 1e-4))
+        step = make_train_step(get_loss(loss), has_batch_stats=state.has_batch_stats, binary_head=binary)
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        xb, yb = x[:batch].contiguous(), y[:batch].contiguous()
+        for _ in range(3):
+            step(state, xb, yb, g)
+        ms = cuda_ms(lambda: step(state, xb, yb, g), 20)
+        wall, busy, ranked = device_breakdown(lambda: step(state, xb, yb, g))
+        log("train-step", model=label, batch=batch, ms=f"{ms:.3f}", utt_per_s=f"{batch / ms * 1e3:.1f}",
+            host_wall_ms=f"{wall:.3f}", device_kernel_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.3f}")
+        for k_ms, k_n, name in ranked:
+            print(f"  {k_ms:8.3f} ms  x{k_n}  {name[:100]}", flush=True)
+        print("  host, self CPU time per step:", flush=True)
+        for h_ms, h_n, name in host_ops(lambda: step(state, xb, yb, g)):
+            print(f"  {h_ms:8.3f} ms  x{h_n}  {name[:100]}", flush=True)
+        out[batch] = {"ms": ms, "busy_share": busy / wall}
+    return out
+
+
+def train_cli(d: str, cfg: MelConfig) -> int:
+    """``train`` over 64 WAVs in a subprocess on the card, then ``score`` of
+    its best_model.msgpack against the direct scorer; returns the K3
+    launches of both subprocesses."""
+    rng = np.random.default_rng(14)
+    t = np.arange(N_SAMPLES) / SR
+    audio = os.path.join(d, "corpus")
+    for label in ("bonafide", "spoof"):
+        os.makedirs(os.path.join(audio, label))
+        for i in range(32):
+            y = rng.standard_normal(N_SAMPLES) * 0.1
+            if label == "spoof":
+                y = y + 0.1 * np.sin(2 * np.pi * rng.uniform(300, 3000) * t)
+            write_wav(os.path.join(audio, label, f"u{i:02d}.wav"), np.clip(y, -0.999, 0.999), SR)
+    run = os.path.join(d, "run")
+    launches = 0
+    for argv in (["train", audio, "--epochs", "1", "--run-dir", run, "--device", DEVICE],
+                 ["score", audio, "--checkpoint", os.path.join(run, "best_model.msgpack"), "--device", DEVICE]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "audioanalysisdetector_tpu_torch", *argv],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"{argv[0]} CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        counts = next(json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
+                      if line.startswith('{"kernel_launches"'))
+        launches += expect_launched(counts, mel_route(cfg), f"{argv[0]} CLI")
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.strip().startswith("{")]
+        log("train-cli", command=argv[0], wall_s=f"{time.perf_counter() - t0:.1f}", launches=counts[mel_route(cfg)],
+            last_line=json.dumps(lines[-1], separators=(",", ":")))
+    files = [line["file"] for line in lines]
+    got = np.asarray([line["spoof_score"] for line in lines])
+    if len(set(files)) != 64 or not ((got > 0) & (got < 1)).all():
+        raise AssertionError(f"score CLI on the trained run: {len(set(files))} files, scores {got.min()}..{got.max()}")
+    rows = load_chunk_batch_native(files, [0.0] * 64, [N_SAMPLES / SR] * 64, sr=SR)
+    model = init_mel_cnn_bilstm(cfg, N_SAMPLES, checkpoint=os.path.join(run, "best_model.msgpack"), device=DEVICE)
+    direct = make_mel_cnn_bilstm_scorer(model, cfg)(torch.from_numpy(rows).to(DEVICE)).cpu().numpy()
+    diff = float(np.abs(got - direct).max())
+    log("train-cli", files=64, score_diff_vs_direct=f"{diff:.3e}", run_files=",".join(sorted(os.listdir(run))))
+    if diff > SERVE_TOL:
+        raise AssertionError(f"score CLI on the trained run differs from the direct scorer by {diff:.3e}")
+    return launches
+
+
+def grad_guard() -> None:
+    """Each mel kernel refuses a CUDA input that requires grad, and counts no launch."""
+    parity, speech = MelConfig.for_profile("parity", SR), MelConfig.for_profile("speech", SR)
+    wav = waves(2, 1).requires_grad_()
+    frames = frame_signal(waves(2, 1), n_fft=speech.n_fft, hop_length=speech.hop_length)
+    cases = (("ct_mel", lambda: melspectrogram(wav, parity)),
+             ("wave_mel", lambda: melspectrogram(wav, speech)),
+             ("fused_mel_from_frames", lambda: flm.fused_mel_from_frames(
+                 frames.reshape(-1, speech.n_fft).requires_grad_(), speech)))
+    for kernel, call in cases:
+        reset_launch_counts()
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{kernel} took an input that requires grad")
+        if launch_counts()[kernel]:
+            raise AssertionError(f"{kernel} counted a launch it refused")
+        log("grad-guard", kernel=kernel, refused=True)
+
+
+def phase_train() -> dict:
+    """The training path on the card; returns K3's launches and the numbers."""
+    import importlib.util
+
+    cfg = MelConfig.for_profile("parity", SR)
+    T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    wav, y = train_corpus(TRAIN_ROWS, 15)
+
+    def features():
+        with torch.no_grad():
+            return log_mel_spectrogram(wav, cfg)
+
+    feats, counts = run_counted(features)
+    launches = expect_launched(counts, mel_route(cfg), "train features")
+    if feats.shape != (TRAIN_ROWS, cfg.n_mels, T) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"train features: bad shape {tuple(feats.shape)} or non-finite values")
+    log("train", rows=TRAIN_ROWS, features=tuple(feats.shape), kernel=mel_route(cfg), launches=launches,
+        spoof_share=f"{float(y.float().mean()):.4f}",
+        matplotlib=importlib.util.find_spec("matplotlib") is not None)
+
+    # card vs CPU: the full-width model from one converted init, dropout 0
+    def converted():
+        m = CNNBiLSTMHybrid(T, logits=True, dropout_rate=0.0, conv_dropout=0.0)
+        m.load_state_dict(flax_to_torch_cnn_bilstm(random_flax_cnn_bilstm(0, T)))
+        return m
+
+    card, host, sc, sh = steps_card_vs_cpu(converted, feats, y, "BCELoss", True, 5)
+    loss_rel = float(np.abs(card - host).max() / np.abs(host).max())
+    bn = [float((getattr(sc.model.bn, k).cpu() - getattr(sh.model.bn, k)).abs().max()
+                / getattr(sh.model.bn, k).abs().max()) for k in ("running_mean", "running_var")]
+    log("train", check="card_vs_cpu", steps=5, batch=TRAIN_BATCH, losses=",".join(f"{v:.6f}" for v in card),
+        loss_rel_diff=f"{loss_rel:.3e}", bn_mean_rel_diff=f"{bn[0]:.3e}", bn_var_rel_diff=f"{bn[1]:.3e}")
+    if loss_rel > TRAIN_LOSS_RTOL or max(bn) > TRAIN_BN_RTOL:
+        raise AssertionError(f"train steps: card vs CPU loss {loss_rel:.3e} or BN {bn} past the band")
+    del sc, sh
+
+    # fit: the full-width model (softmax attention: with the LayerNorm(1)
+    # quirk and the flax init every ReLU after the pooling sits at 0, so no
+    # gradient reaches the network), flax-like init from seed 0
+    def fresh():
+        return flax_init_(CNNBiLSTMHybrid(T, logits=True, fixed_attention=True), torch.Generator().manual_seed(0))
+
+    split = int(TRAIN_ROWS * 0.8)
+    state = TrainState.create(model=fresh().to(DEVICE), tx=make_optimizer("Adam", 1e-4))
+    with tempfile.TemporaryDirectory() as d:
+        result = fit(state, (feats[:split], y[:split]), (feats[split:], y[split:]), loss_name="BCELoss",
+                     num_epochs=2, batch_size=TRAIN_BATCH, binary_head=True, run_dir=d)
+        run_files = sorted(os.listdir(d))
+    for row in result.logs:
+        log("train-fit", epoch=row.epoch, train_loss=f"{row.train_loss:.6f}", train_acc=f"{row.train_acc:.4f}",
+            val_loss=f"{row.val_loss:.6f}", val_acc=f"{row.val_acc:.4f}", seconds=f"{row.seconds:.3f}",
+            epoch_utt_per_s=f"{split / row.seconds:.1f}")
+    log("train-fit", best_epoch=result.best_epoch, steps=result.state.step, run_files=",".join(run_files))
+    first, last = result.logs[0].train_loss, result.logs[-1].train_loss
+    if not last < first:
+        raise AssertionError(f"fit: train loss did not fall ({first:.6f} -> {last:.6f})")
+    timing = step_timing("cnn_bilstm", fresh, feats, y, "BCELoss", True)
+
+    # bilstm_pipeline on the phase's CQCC features (T = 63, F = 19)
+    n_cq = 2048
+    with torch.no_grad():
+        cq = transpose_cqcc(cqcc(wav[:n_cq], CQCCConfig()))
+    cq = FrameScaler.fit_sequences(cq.cpu().numpy()).transform(cq).contiguous()
+    cut = int(n_cq * 0.8)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res, final = bilstm_pipeline((cq[:cut], y[:cut]), (cq[cut:], y[cut:n_cq]), num_epochs=1,
+                                     batch_size=TRAIN_BATCH, hidden=128, model_dir=d, device=DEVICE)
+        wall = time.perf_counter() - t0
+    log("train-bilstm", rows=n_cq, features=tuple(cq.shape), wall_s=f"{wall:.2f}",
+        train_loss=f"{res.logs[0].train_loss:.6f}", val_loss=f"{res.logs[0].val_loss:.6f}",
+        accuracy=f"{final['accuracy']:.4f}", eer=f"{final['eer']:.4f}")
+
+    def classifier():
+        m = BiLSTMClassifier(hidden=128, input_dim=19, dropout=0.0)
+        m.load_state_dict(flax_to_torch_bilstm_classifier(random_flax_bilstm_classifier(0, 128, 19)))
+        return m
+
+    card, host, *_ = steps_card_vs_cpu(classifier, cq, y, "CrossEntropyLoss", False, 3)
+    bl_rel = float(np.abs(card - host).max() / np.abs(host).max())
+    log("train-bilstm", check="card_vs_cpu", steps=3, losses=",".join(f"{v:.6f}" for v in card),
+        loss_rel_diff=f"{bl_rel:.3e}")
+    if bl_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"bilstm train steps: card vs CPU loss {bl_rel:.3e} > {TRAIN_LOSS_RTOL}")
+    bl_timing = step_timing("bilstm_classifier", classifier, cq, y, "CrossEntropyLoss", False)
+
+    with tempfile.TemporaryDirectory() as d:
+        launches += train_cli(d, cfg)
+    grad_guard()
+    del wav, feats, cq
+    free()
+    return {"ct_mel": launches, "step": timing, "bilstm_step": bl_timing}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -921,6 +1185,7 @@ def main() -> int:
         for name, n in part.items():
             launches[name] += n
     phase_fused()
+    launches["ct_mel"] += phase_train()["ct_mel"]
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],

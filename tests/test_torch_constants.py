@@ -71,12 +71,12 @@ def test_wave_mel_operands_bitwise(profile):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax, flax and msgpack blocked
-    (the card machine has none of them), and pulls in nothing of the JAX
-    package."""
+    """Every module of the port imports with jax, flax, optax and msgpack
+    blocked (the card machine has none of them), and pulls in nothing of the
+    JAX package."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'msgpack'):\n"
+        "for m in ('jax', 'flax', 'optax', 'msgpack'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil\n"
         "import audioanalysisdetector_tpu_torch as P\n"
@@ -84,8 +84,9 @@ def test_port_imports_without_jax():
         "    importlib.import_module(mi.name)\n"
         "from audioanalysisdetector_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['score', '.', '--allow-random'])\n"
+        "build_parser().parse_args(['train', '.', '--epochs', '1'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'msgpack', 'audioanalysisdetector_tpu') and sys.modules[m] is not None]\n"
+        "('jax', 'flax', 'optax', 'msgpack', 'audioanalysisdetector_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
     root = Path(__file__).resolve().parents[1]
