@@ -54,3 +54,20 @@ class FrameScaler:
     def load(path: str) -> "FrameScaler":
         with np.load(path) as z:
             return FrameScaler(mean=z["mean"], std=z["std"])
+
+
+def prepare_train_test_data(
+    train_seqs: np.ndarray,
+    test_seqs: np.ndarray,
+    *,
+    scaler_path: str | None = None,
+) -> tuple[np.ndarray, np.ndarray, FrameScaler]:
+    """Fit on train frames, transform both (the reference's contract,
+    reference/ASV_dl_func.py:1113-1129), on the host in float32 as the JAX
+    package computes it; ``scaler_path`` keeps the scaler as npz."""
+    scaler = FrameScaler.fit_sequences(train_seqs)
+    tr = scaler.transform(torch.from_numpy(np.asarray(train_seqs, np.float32))).numpy()
+    te = scaler.transform(torch.from_numpy(np.asarray(test_seqs, np.float32))).numpy()
+    if scaler_path:
+        scaler.save(scaler_path)
+    return tr, te, scaler

@@ -1,8 +1,8 @@
-"""Host-side IO (L0): audio decode/probe and the native loader bindings.
+"""Host-side IO (L0): audio decode/probe, config, native loader bindings.
 
 Copies of the JAX package's backend-free ``io`` modules (importing that
-package would import jax). Its ``io/config.py`` is not ported yet: it needs
-``yaml``.
+package would import jax). ``io/config.py`` imports ``yaml`` only inside
+its loaders.
 """
 
 from audioanalysisdetector_tpu_torch.io.audio import (
@@ -21,6 +21,13 @@ from audioanalysisdetector_tpu_torch.io.flac import (
     read_flac,
     write_flac,
 )
+from audioanalysisdetector_tpu_torch.io.config import (
+    DEFAULT_COLUMNS,
+    DEFAULT_CONFIG_TEMPLATE,
+    ConfigNode,
+    load_config,
+    loads_config,
+)
 from audioanalysisdetector_tpu_torch.io.native_loader import (
     audio_info_native,
     load_chunk_batch_native,
@@ -29,6 +36,9 @@ from audioanalysisdetector_tpu_torch.io.native_loader import (
 
 __all__ = [
     "AudioInfo",
+    "ConfigNode",
+    "DEFAULT_COLUMNS",
+    "DEFAULT_CONFIG_TEMPLATE",
     "FlacError",
     "FlacStreamInfo",
     "audio_info",
@@ -38,6 +48,8 @@ __all__ = [
     "load_audio",
     "load_chunk_batch",
     "load_chunk_batch_native",
+    "load_config",
+    "loads_config",
     "native_available",
     "read_flac",
     "resample_poly_host",

@@ -1,5 +1,5 @@
 """Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
-classifier and GMM scoring, and their LSTM layers."""
+classifier, the diagonal GMM (scoring, EM, MAP), and their LSTM layers."""
 
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
@@ -7,8 +7,10 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
     DiagGMM,
     component_log_prob,
     compute_llr,
+    fit_em,
     from_numpy,
     log_weighted,
+    map_adapt,
     masked_llr,
     predict_proba,
     score,
@@ -26,9 +28,11 @@ __all__ = [
     "LSTMLayer",
     "component_log_prob",
     "compute_llr",
+    "fit_em",
     "flax_init_",
     "from_numpy",
     "log_weighted",
+    "map_adapt",
     "masked_llr",
     "predict_proba",
     "score",

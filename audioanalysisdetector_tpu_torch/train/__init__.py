@@ -1,7 +1,7 @@
 """Training subsystem (PyTorch port): losses, optimizers, state, steps,
-loops, checkpoints in the JAX package's format, metrics, and the load and
-evaluation side of the GMM-UBM system. GMM training is ROADMAP Queue 1
-step 8, data-parallel steps step 9."""
+loops, checkpoints in the JAX package's format, metrics, the GMM-UBM
+system (training, loading, evaluation) and the surrogate quality lane
+(``train.quality``). Data-parallel steps are ROADMAP Queue 1 step 9."""
 
 from audioanalysisdetector_tpu_torch.train.checkpoint import (
     MsgpackFormatError,
@@ -19,6 +19,7 @@ from audioanalysisdetector_tpu_torch.train.gmm_system import (
     load_gmm_models,
     make_gmm_feature_fn,
     sequence_cmvn,
+    train_gmm_system,
 )
 from audioanalysisdetector_tpu_torch.train.loop import (
     EpochLog,
@@ -81,4 +82,5 @@ __all__ = [
     "save_checkpoint",
     "save_params",
     "sequence_cmvn",
+    "train_gmm_system",
 ]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -65,7 +65,19 @@ each print their lines:
     against CPU over 3 steps; the ``train`` CLI over 64 WAVs in a
     subprocess, its ``best_model.msgpack`` read by the ``score`` CLI; the
     grad guard: each mel kernel refuses an input that requires grad;
-11. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+11. gmm-train: GMM-UBM training at the reference's scale (1.8M frames of
+    19 coefficients from 8 seeded centres, 128 components, 100 EM
+    iterations, ``benchmarks/bench_gmm.py``'s setup): ``fit_em`` through
+    the flat and the chunked E-step (s per fit, ms per iteration, peak
+    memory; parameters and mean LL held to each other), ``map_adapt``
+    against ``map_adapt_chunked`` on both halves of the buffer, means only
+    and full (ms per MAP); ``fit_em`` (20k frames, K = 16) and
+    ``train_gmm_system`` (K = 128 on the CQCC of 512 utterances, plain and
+    CMVN) on the card against the CPU; ``eval_model``'s training branch; the
+    ``train-fused`` CLI over 64 WAVs and ``train-asvspoof`` on a reduced v5
+    surrogate corpus (its cuts in ``phase_gmm_train``), with the time of
+    each stage. No TPU kernel is on this path: plain PyTorch;
+12. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -77,6 +89,8 @@ are random, from a seed.
 from __future__ import annotations
 
 import base64
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -122,7 +136,17 @@ from audioanalysisdetector_tpu_torch.io.native_loader import (
 )
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
-from audioanalysisdetector_tpu_torch.models.gmm import from_numpy, to_numpy
+from audioanalysisdetector_tpu_torch.models.gmm import (
+    _em_step,
+    _em_step_flat,
+    _pad_on_device,
+    fit_em,
+    from_numpy,
+    map_adapt,
+    map_adapt_chunked,
+    score_samples,
+    to_numpy,
+)
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm  # the modules: counters
@@ -142,7 +166,7 @@ from audioanalysisdetector_tpu_torch.train import (
     make_optimizer,
     make_train_step,
 )
-from audioanalysisdetector_tpu_torch.train.gmm_system import eval_model, make_gmm_feature_fn
+from audioanalysisdetector_tpu_torch.train.gmm_system import eval_model, make_gmm_feature_fn, train_gmm_system
 from audioanalysisdetector_tpu_torch.serve.server import (
     BatchingScorer,
     ScoreServer,
@@ -198,6 +222,29 @@ FUSED_TOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_BN_RTOL = 2e-3
 TRAIN_ROWS, TRAIN_BATCH = 8192, 256
+# GMM-UBM training at the reference's scale (benchmarks/bench_gmm.py:30-34:
+# ~1.8M CQCC frames of 19 coefficients, 128 components, 100 EM iterations)
+GMM_FRAMES, GMM_DIM, GMM_K = 1_800_000, 19, 128
+# EM, flat against chunked path, over 100 iterations (tol 0): the
+# statistics of 1.8M frames summed in one GEMM or over 28 chunks differ by
+# rounding, and EM carries that on through components that share one of
+# the 8 centres (an H100 read 1.8e-4 of the largest mean; a CPU run at
+# 200k frames 6.6e-4 of the largest variance, 2.4e-4 after 5 iterations);
+# relative to each array's largest entry. The mean log-likelihood of the
+# two fits on the frames is the robust scalar (the H100 read them equal).
+EM_PATH_RTOL = 2e-3
+EM_LL_RTOL = 1e-5
+# MAP, flat against chunked: one E-step's statistics summed in one GEMM or
+# over 28 chunks (an H100 read 3.1e-5 in the full update, 1.4e-6 means only)
+MAP_RTOL = 2e-4
+# EM and train_gmm_system, card against CPU from the same frames, at a
+# fixed number of iterations (tol 0, or max_iter 10 where the system's tol
+# 1e-3 stays unreached): fp32 statistics summed in other orders (an H100
+# read 1.5e-5 and 8.9e-6). Left to tol 1e-3, the noise frames' EM still
+# gains ~1e-3 of LL an iteration at its 30th, the two devices' LLs differ
+# by ~4e-6, and that decides whether the stop falls one iteration earlier
+# or later (measured 30 against 31 iterations, parameters 1.3e-2 apart).
+GMM_DEVICE_RTOL = 1e-4
 KERNEL_SOURCES = {
     "wave_mel": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/wave_mel.py:63"),
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
@@ -1173,19 +1220,247 @@ def phase_train() -> dict:
     return {"ct_mel": launches, "step": timing, "bilstm_step": bl_timing}
 
 
+@contextlib.contextmanager
+def stage_timer(module, name: str, seconds: dict):
+    """Wrap ``module.name`` so each call adds its wall (the card synchronised)
+    to ``seconds[name]``; the CLI looks its functions up at call time."""
+    fn = getattr(module, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def print_breakdown(path: str, fn) -> None:
+    """``device_breakdown`` of one call of ``fn`` as a log line and its top kernels."""
+    wall, busy, ranked = device_breakdown(fn, iters=3)
+    log("breakdown", path=path, host_wall_ms=f"{wall:.3f}", device_kernel_ms=f"{busy:.3f}",
+        busy_share=f"{busy / wall:.3f}")
+    for k_ms, k_n, name in ranked:
+        print(f"  {k_ms:8.3f} ms  x{k_n}  {name[:100]}", flush=True)
+
+
+def cli_json(argv: list[str]) -> dict:
+    """The port's CLI in this process on the card; its last stdout line as JSON."""
+    from audioanalysisdetector_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} CLI exited {rc}:\n{buf.getvalue()[-4000:]}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def gmm_rel_diff(a, b) -> float:
+    """max |a - b| of two GMMs' parameters, each relative to a's largest entry."""
+    a, b = to_numpy(a), to_numpy(b)
+    return max(float(np.abs(a[k] - b[k]).max() / np.abs(a[k]).max()) for k in a)
+
+
+def finite_eers(out: dict, where: str) -> None:
+    eers = [out["bilstm"]["eer"], out["gmm"]["eer"], out["fused"]["eer"],
+            *out["fused"].get("per_tier_eer", {}).values()]
+    if not all(np.isfinite(e) and 0.0 <= e <= 1.0 for e in eers):
+        raise AssertionError(f"{where}: EERs not finite in [0, 1]: {out}")
+
+
+def phase_gmm_train() -> None:
+    """GMM-UBM training on the card: EM at the reference's scale (flat and
+    chunked), MAP (flat and chunked, means only and full), EM and
+    ``train_gmm_system`` card against CPU, ``eval_model``'s training branch,
+    and the ``train-fused`` and ``train-asvspoof`` CLIs.
+
+    ``train-asvspoof`` runs on a reduced v5 surrogate corpus (recipe v5 is
+    train 180 bonafide + 60 per tier, eval 480 + 160 per tier, 40 epochs):
+    train 6 + 2 per tier, eval 12 + 4 per tier, 4.5 s, channel "varied",
+    3 epochs, 128 components, ``--gmm-cmvn``, fusion weight 0.5, hidden 64.
+    The cuts: the corpus, whose host synthesis takes ~0.12 s a file on the
+    card machine (the full v5 pair ~150 s; 144 files took 15.7 s and 72
+    files 8.5 s, which kept the script past its time, so 36), and the
+    epochs. The path reaches no TPU kernel (XLA computed it in the JAX
+    package), so it runs plain PyTorch: cuBLAS SGEMM and elementwise passes.
+    """
+    from audioanalysisdetector_tpu_torch.cli import main as cli_mod
+    from audioanalysisdetector_tpu_torch.data.synthetic import make_surrogate_corpus
+    from audioanalysisdetector_tpu_torch.train import gmm_system, loop, quality
+
+    # 1. UBM EM at the reference's scale, flat then chunked
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((8, GMM_DIM)) * 2
+    x = (centers[rng.integers(0, 8, GMM_FRAMES)] + rng.standard_normal((GMM_FRAMES, GMM_DIM))).astype(np.float32)
+    xd = torch.from_numpy(x).to(DEVICE)
+    torch.cuda.synchronize()
+    log("gmm-train", frames=GMM_FRAMES, dim=GMM_DIM, components=GMM_K, data_s=f"{time.perf_counter() - t0:.2f}")
+    fits = {}
+    for path, kw in (("flat", {}), ("chunked", {"flat_bytes": 0, "chunk": 65536})):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fits[path] = fit_em(xd, GMM_K, max_iter=100, tol=0.0, seed=42, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if path == "flat":
+            step = lambda: _em_step_flat(xd, fits["flat"])  # noqa: E731
+        else:
+            xc, wc = _pad_on_device(xd, torch.ones(GMM_FRAMES, device=DEVICE), 65536)
+            step = lambda: _em_step(xc, wc, fits["chunked"])  # noqa: E731
+        it_ms = cuda_ms(step, 5)
+        log("gmm-train", em=path, iters=100, fit_s=f"{wall:.3f}", iter_ms=f"{it_ms:.3f}",
+            peak_mem_gb=f"{peak / 1e9:.3f}", reference_cpu_sklearn_s=478.85)
+        print_breakdown(f"em_{path}_iteration", step)
+        del step
+    with torch.no_grad():
+        ll = {p: float(score_samples(xd, g).mean()) for p, g in fits.items()}
+    path_diff = gmm_rel_diff(fits["flat"], fits["chunked"])
+    ll_rel = abs(ll["flat"] - ll["chunked"]) / abs(ll["flat"])
+    log("gmm-train", check="flat_vs_chunked", param_rel_diff=f"{path_diff:.3e}", mean_ll_flat=f"{ll['flat']:.6f}",
+        mean_ll_chunked=f"{ll['chunked']:.6f}", ll_rel_diff=f"{ll_rel:.3e}")
+    if path_diff > EM_PATH_RTOL or ll_rel > EM_LL_RTOL or not np.isfinite(ll["flat"]):
+        raise AssertionError(f"EM flat vs chunked: params {path_diff:.3e}, LL {ll_rel:.3e}")
+
+    # MAP, flat vs chunked, on both halves of the buffer, means only and full
+    ubm = fits["flat"]
+    half = (torch.arange(GMM_FRAMES, device=DEVICE) < GMM_FRAMES // 2).to(torch.float32)
+    for mode in ("means", "full"):
+        full = mode == "full"
+        kw = dict(adapt_vars=full, adapt_weights=full)
+        diffs = []
+        for w in (half, 1.0 - half):
+            diffs.append(gmm_rel_diff(map_adapt(ubm, xd, frame_weights=w, **kw),
+                                      map_adapt_chunked(ubm, xd, frame_weights=w, **kw)))
+        t = {name: cuda_ms(lambda f=f: f(ubm, xd, frame_weights=half, **kw), 3)
+             for name, f in (("flat", map_adapt), ("chunked", map_adapt_chunked))}
+        log("gmm-train", map=mode, flat_ms=f"{t['flat']:.3f}", chunked_ms=f"{t['chunked']:.3f}",
+            flat_vs_chunked_rel_diff=f"{max(diffs):.3e}")
+        if full:
+            print_breakdown("map_full_flat", lambda: map_adapt(ubm, xd, frame_weights=half, **kw))
+        if max(diffs) > MAP_RTOL:
+            raise AssertionError(f"MAP {mode}: flat vs chunked {max(diffs):.3e} > {MAP_RTOL}")
+    del xd, x, fits, ubm, half
+    free()
+
+    # 2. card against CPU: fit_em on 20k frames, K = 16
+    x20 = (centers[rng.integers(0, 8, 20_000)] + rng.standard_normal((20_000, GMM_DIM))).astype(np.float32)
+    em_dev = gmm_rel_diff(*(fit_em(x20, 16, seed=3, max_iter=30, tol=0.0, device=d) for d in ("cpu", DEVICE)))
+    log("gmm-train", check="fit_em_card_vs_cpu", frames=20_000, components=16, param_rel_diff=f"{em_dev:.3e}")
+    if em_dev > GMM_DEVICE_RTOL:
+        raise AssertionError(f"fit_em card vs CPU {em_dev:.3e} > {GMM_DEVICE_RTOL}")
+
+    # train_gmm_system on the CQCC of 512 utterances made as phase 9's,
+    # K = 128, plain and with CMVN, 10 EM iterations: the npz files of both devices
+    cfg = CQCCConfig()
+    with torch.no_grad():
+        cq = transpose_cqcc(cqcc(waves(512, 7), cfg)).cpu().numpy()
+    cq = FrameScaler.fit_sequences(cq).transform(torch.from_numpy(cq)).numpy()
+    y = np.random.default_rng(16).integers(0, 2, len(cq))
+    for cmvn in (False, True):
+        with tempfile.TemporaryDirectory() as d:
+            walls = {}
+            for device in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                train_gmm_system(cq, y, n_components=GMM_K, cmvn=cmvn, max_iter=10,
+                                 model_dir=os.path.join(d, device), device=device)
+                walls[device] = time.perf_counter() - t0
+            diff = 0.0
+            for name in ("ubm", "gmm_genuine", "gmm_df"):
+                with np.load(os.path.join(d, DEVICE, f"{name}.npz")) as a, \
+                        np.load(os.path.join(d, "cpu", f"{name}.npz")) as b:
+                    diff = max(diff, max(float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max()) for k in b.files))
+        log("gmm-train", check="train_gmm_system_card_vs_cpu", cmvn=cmvn, frames=cq.shape[0] * cq.shape[1],
+            components=GMM_K, npz_rel_diff=f"{diff:.3e}", card_s=f"{walls[DEVICE]:.3f}", cpu_s=f"{walls['cpu']:.3f}")
+        if diff > GMM_DEVICE_RTOL:
+            raise AssertionError(f"train_gmm_system card vs CPU (cmvn={cmvn}): {diff:.3e} > {GMM_DEVICE_RTOL}")
+
+    # 3. eval_model's training branch on the card: no saved GMMs in the dir
+    model, _, _ = fused_models(DEVICE)
+    with tempfile.TemporaryDirectory() as d:
+        _, y_pred, metrics = eval_model(model, cq[:384], y[:384], cq[384:], y[384:], model_dir=d,
+                                        verbose=False, device=DEVICE)
+        written = sorted(os.listdir(d))
+    log("gmm-train", eval_model="training_branch", train_rows=384, test_rows=len(cq) - 384,
+        accuracy=f"{metrics['accuracy']:.4f}", f1=f"{metrics['f1']:.4f}", eer=f"{metrics['eer']:.4f}",
+        written=",".join(written))
+    if written != ["feature_transform.json", "gmm_df.npz", "gmm_genuine.npz", "ubm.npz"] or not 0 <= metrics["eer"] <= 1:
+        raise AssertionError(f"eval_model training branch: {written}, {metrics}")
+
+    with tempfile.TemporaryDirectory() as d:
+        # 4. train-fused over 64 seeded WAVs (bonafide noise, spoof noise + tone)
+        rng = np.random.default_rng(17)
+        t = np.arange(N_SAMPLES) / SR
+        for label in ("bonafide", "spoof"):
+            os.makedirs(os.path.join(d, "wavs", label))
+            for i in range(32):
+                w = rng.standard_normal(N_SAMPLES) * 0.1
+                if label == "spoof":
+                    w = w + 0.1 * np.sin(2 * np.pi * rng.uniform(300, 3000) * t)
+                write_wav(os.path.join(d, "wavs", label, f"u{i:02d}.wav"), np.clip(w, -0.999, 0.999), SR)
+        t0 = time.perf_counter()
+        fused = cli_json(["train-fused", os.path.join(d, "wavs"), "--epochs", "3",
+                          "--run-dir", os.path.join(d, "fused_run"), "--device", DEVICE])
+        log("gmm-train", cli="train-fused", files=64, wall_s=f"{time.perf_counter() - t0:.2f}",
+            json=json.dumps(fused, separators=(",", ":")))
+        finite_eers(fused, "train-fused")
+
+        # 5. train-asvspoof on the reduced v5 surrogate corpus
+        t0 = time.perf_counter()
+        corpus = {split: make_surrogate_corpus(os.path.join(d, split), subset=split, seconds=4.5, seed=seed,
+                                               channel="varied", **n)
+                  for split, seed, n in (("train", 0, dict(n_bonafide=6, n_spoof_per_tier=2)),
+                                         ("eval", 1, dict(n_bonafide=12, n_spoof_per_tier=4)))}
+        stages = {"synthesis": time.perf_counter() - t0}
+        with stage_timer(quality, "build_cqcc_arrays", stages), stage_timer(loop, "bilstm_pipeline", stages), \
+                stage_timer(gmm_system, "train_gmm_system", stages), \
+                stage_timer(cli_mod, "_eval_fused_system", stages):
+            t0 = time.perf_counter()
+            asv = cli_json(["train-asvspoof", corpus["train"][0], corpus["eval"][0], "--audio-dir",
+                            corpus["train"][1], corpus["eval"][1], "--epochs", "3", "--hidden", "64",
+                            "--gmm-components", "128", "--lr", "3e-4", "--gmm-cmvn", "--fusion-weight", "0.5",
+                            "--run-dir", os.path.join(d, "asv_run"), "--device", DEVICE])
+            stages["cli_total"] = time.perf_counter() - t0
+    log("gmm-train", cli="train-asvspoof", json=json.dumps(asv, separators=(",", ":")))
+    log("gmm-train", cli="train-asvspoof", **{f"{k}_s": f"{v:.2f}" for k, v in stages.items()})
+    # 12 train files x two 2-s chunks, 12 of each class (no upsampling); 24 eval files x 2
+    if (asv["n_train"], asv["n_eval"]) != (24, 48) or set(asv["fused"].get("per_tier_eer", {})) != {
+            "A01", "A02", "A03"}:
+        raise AssertionError(f"train-asvspoof: n_train/n_eval or tiers wrong: {asv}")
+    finite_eers(asv, "train-asvspoof")
+    free()
+
+
+def timed_phase(phase):
+    """``phase()``, with its wall printed after it."""
+    t0 = time.perf_counter()
+    out = phase()
+    log("phase", name=phase.__name__, wall_s=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k3 = phase_k3()
-    k2 = phase_k2()
+    timed_phase(phase_build)
+    k1 = timed_phase(phase_k1)
+    k3 = timed_phase(phase_k3)
+    k2 = timed_phase(phase_k2)
     launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"]}
-    for part in (phase_e2e()[0], phase_serve(), phase_score()):
+    for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
-    phase_fused()
-    launches["ct_mel"] += phase_train()["ct_mel"]
+    timed_phase(phase_fused)
+    launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
+    timed_phase(phase_gmm_train)
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],

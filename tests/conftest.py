@@ -39,3 +39,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (multi-process / full-recipe) tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card (skips without one)")
