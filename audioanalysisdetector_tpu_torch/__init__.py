@@ -8,13 +8,16 @@ inputs and weights. This package imports torch and numpy, never jax.
 Ported so far: the mel scoring path, wav -> log-mel -> CNN-BiLSTM -> score,
 served over HTTP and over files from disk (``score`` command); the flagship
 fused scorer, wav -> CQCC -> GMM ⊕ BiLSTM, with the loaders of a
-JAX-trained model dir; and training: the CNN-BiLSTM (``train``), the
+JAX-trained model dir; training: the CNN-BiLSTM (``train``), the
 BiLSTM classifier and the GMM-UBM (EM, MAP), with the flagship
-``train-fused`` and ``train-asvspoof`` recipes.
+``train-fused`` and ``train-asvspoof`` recipes; and every feature extractor
+with the augmentations (``extract``, ``augment``).
 
 - ``frontend``: STFT power, Slaney mel, dB (``melspectrogram`` launches a
   hand-written kernel on CUDA tensors: ``ops.ct_mel`` at the parity
-  profile, ``ops.wave_mel`` elsewhere); CQT, CQCC, DCT, deltas, CMVN.
+  profile, ``ops.wave_mel`` elsewhere); STFT and iSTFT, MFCC, deltas,
+  CMVN, LFCC/GFCC, CQT, CQCC, DCT, wavelet-packet energies, the EDA
+  spectrograms, formants.
 - ``ops``:      hand-written Hopper kernels (CUDA C++, built with nvcc at
   first use) beside their plain PyTorch versions.
 - ``models``:   BiLSTM, the CNN-BiLSTM hybrid, the fused system's BiLSTM
@@ -24,7 +27,8 @@ BiLSTM classifier and the GMM-UBM (EM, MAP), with the flagship
 - ``io``:       WAV/FLAC decoders, the native batch loader, YAML config.
 - ``train``:    losses, optimizers, loops, checkpoints in the JAX package's
   format, metrics, the GMM-UBM system, the surrogate quality lane;
-  ``data``:     metadata, chunking, balancing, batched feature extraction
+  ``data``:     metadata, chunking, balancing, augmentation (noise, shift,
+  phase-vocoder pitch shift, SpecAugment), batched feature extraction
   (tables are lists of row dicts: no pandas), the frame scaler, bucketing,
   the synthetic surrogate corpus.
 - ``convert``:  flax parameters -> the port's state_dict.
@@ -34,8 +38,11 @@ __version__ = "0.1.0"
 
 from audioanalysisdetector_tpu_torch.frontend import (  # noqa: F401
     MelConfig,
+    MFCCConfig,
     amplitude_to_db,
     log_mel_spectrogram,
     melspectrogram,
+    mfcc,
     power_to_db,
+    stft,
 )

@@ -1,16 +1,17 @@
 """Command-line entry points of the PyTorch port.
 
   score          log-mel + CNN-BiLSTM spoof scoring over a directory of WAV/FLAC files
+  extract        feature extraction (mfcc/lfcc/cqcc/gtcc/wpt/mel_spectrogram/mfcc_deltas) to .npz
+  augment        augmentation on the device: writes noise, pitch and shift WAVs
   serve          HTTP scoring service: dynamic micro-batching in front of one card
   train          CNN-BiLSTM training run on log-mel features (one device)
   train-fused    GMM(+)BiLSTM flagship system: CQCC -> BiLSTM + GMM-UBM -> fused EER
   train-asvspoof metadata-driven flagship recipe on an ASVspoof-layout corpus
 
 The flags are those of the JAX package's commands, plus ``--device``.
-Multi-device data parallelism (``serve --data-parallel on``), multi-process
-serving (``--workers`` > 1) and augmentation (``train-asvspoof --augment``)
-are not ported yet and are refused. Run as
-``python -m audioanalysisdetector_tpu_torch score ...``.
+Multi-device data parallelism (``serve --data-parallel on``) and
+multi-process serving (``--workers`` > 1) are not ported yet and are
+refused. Run as ``python -m audioanalysisdetector_tpu_torch score ...``.
 """
 
 from __future__ import annotations
@@ -268,13 +269,6 @@ def cmd_train_asvspoof(args) -> int:
     from audioanalysisdetector_tpu_torch.train.loop import bilstm_pipeline
     from audioanalysisdetector_tpu_torch.train.quality import build_cqcc_arrays
 
-    if args.augment:
-        print(
-            "train-asvspoof: --augment is not ported to audioanalysisdetector_tpu_torch yet "
-            "(ROADMAP Queue 1 step 11: augmentation)",
-            file=sys.stderr,
-        )
-        return 2
     os.makedirs(args.run_dir, exist_ok=True)
 
     def build(metadata: str, name: str):
@@ -282,7 +276,8 @@ def cmd_train_asvspoof(args) -> int:
             metadata, args.audio_dir, name=name, sr=args.sr,
             sample_size=args.sample_size, extension=args.extension,
             rescue_dir=args.run_dir, seed=args.seed, balance=name == "train",
-            return_attack=name == "eval", device=args.device,
+            return_attack=name == "eval", augment=args.augment and name == "train",
+            device=args.device,
         )
 
     x_tr, y_tr = build(args.train_metadata, "train")
@@ -350,6 +345,80 @@ def cmd_score(args) -> int:
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "spoof_score": float(s), "label": int(s > 0.5)}))
     print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def cmd_extract(args) -> int:
+    """Stream-decode the files and run one registry extractor on
+    ``--device``; write ``features`` and ``files`` to an ``.npz``. Feature
+    tensors are large, so only a 2-batch window stays on the device: older
+    batches are fetched to the host as new ones are dispatched. The run's
+    kernel launch counts go to stderr as one JSON line."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.data.pipeline import default_extractors
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.score.streaming import stream_decode_batches
+
+    paths = _collect_wavs(args.audio)
+    if not paths:
+        print(f"no WAV files under {args.audio}", file=sys.stderr)
+        return 1
+    registry = default_extractors(args.sr)
+    if args.feature not in registry:
+        print(f"unknown feature {args.feature}; options: {sorted(registry)}", file=sys.stderr)
+        return 1
+    feature_fn = registry[args.feature]
+    kept_all: list[str] = []
+    host_parts: list[np.ndarray] = []
+    window: list[torch.Tensor] = []
+    with torch.no_grad():
+        for kept, batch_np in stream_decode_batches(
+            paths, seconds=args.seconds, sr=args.sr, batch_size=args.batch_size
+        ):
+            kept_all.extend(kept)
+            window.append(feature_fn(torch.from_numpy(batch_np).to(args.device)))
+            if len(window) > 2:
+                host_parts.append(window.pop(0).cpu().numpy())
+    host_parts.extend(f.cpu().numpy() for f in window)
+    if not host_parts:
+        print("no decodable audio files — nothing extracted", file=sys.stderr)
+        return 1
+    feats = np.concatenate(host_parts)
+    np.savez(args.output, features=feats, files=np.asarray(kept_all))
+    print(f"wrote {feats.shape} {args.feature} features to {args.output}")
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def cmd_augment(args) -> int:
+    """Decode the files, make the noise, pitch and shift variants on
+    ``--device`` (one generator seeded from ``--seed``), write each as a
+    16-bit WAV."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.data.augment import add_noise, pitch_shift, time_shift
+    from audioanalysisdetector_tpu_torch.io.audio import write_wav
+
+    paths = _collect_wavs(args.audio)
+    if not paths:
+        print(f"no WAV files under {args.audio}", file=sys.stderr)
+        return 1
+    paths, wav_np = _load_batch(paths, args.seconds, args.sr)
+    wav = torch.from_numpy(wav_np).to(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+    with torch.no_grad():
+        variants = {
+            "noise": add_noise(wav, generator, factor=args.noise_factor),
+            "pitch": pitch_shift(wav, n_steps=args.pitch_steps),
+            "shift": time_shift(wav, generator),
+        }
+    for name, batch in variants.items():
+        for p, y in zip(paths, batch.cpu().numpy()):
+            base = os.path.splitext(os.path.basename(p))[0]
+            write_wav(os.path.join(args.output_dir, f"{base}_{name}.wav"), y, args.sr)
+    print(f"wrote {len(paths) * len(variants)} augmented files to {args.output_dir}")
     return 0
 
 
@@ -465,6 +534,27 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.set_defaults(fn=cmd_score)
 
+    def clip_flags(sp):
+        sp.add_argument("audio", help="WAV/FLAC directory or glob")
+        sp.add_argument("--sr", type=int, default=16000)
+        sp.add_argument("--seconds", type=float, default=2.0)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda", help="torch device the run uses")
+
+    sp = sub.add_parser("extract", help="feature extraction to .npz")
+    clip_flags(sp)
+    sp.add_argument("--feature", default="cqcc")
+    sp.add_argument("--output", default="features.npz")
+    sp.add_argument("--batch-size", type=int, default=512)
+    sp.set_defaults(fn=cmd_extract)
+
+    sp = sub.add_parser("augment", help="augmentation on the device: writes augmented WAVs")
+    clip_flags(sp)
+    sp.add_argument("--output-dir", default="augmented")
+    sp.add_argument("--noise-factor", type=float, default=0.005)
+    sp.add_argument("--pitch-steps", type=float, default=2.0)
+    sp.set_defaults(fn=cmd_augment)
+
     sp = sub.add_parser("train", help="CNN-BiLSTM training run")
     sp.add_argument("audio", help="WAV/FLAC directory or glob ('spoof'/'fake' dirs are label 1)")
     mel_flags(sp)
@@ -546,7 +636,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--run-dir", default="GMM-BiLSTM")
     sp.add_argument(
         "--augment", action="store_true",
-        help="accepted for compatibility; augmentation is not ported yet and is refused",
+        help="expand the TRAIN split with the reference's augmentation "
+        "policy (p=0.8 one of pitch/noise, p=0.5 both), applied on the "
+        "device during extraction",
     )
     fusion_flags(sp)
     device_flag(sp)

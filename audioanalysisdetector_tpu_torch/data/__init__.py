@@ -1,8 +1,20 @@
 """Data pipeline (PyTorch port): metadata ingestion, chunking, balancing,
-batched feature extraction, frame standardization, length bucketing and the
-synthetic surrogate corpus. Tables are lists of row dicts (no pandas)."""
+augmentation, batched feature extraction, frame standardization, length
+bucketing and the synthetic surrogate corpus. Tables are lists of row dicts
+(no pandas)."""
 
+from audioanalysisdetector_tpu_torch.data.augment import (
+    AUG_CODES,
+    add_noise,
+    apply_augmentations,
+    pitch_shift,
+    resample_to,
+    spec_augment,
+    time_shift,
+    time_stretch,
+)
 from audioanalysisdetector_tpu_torch.data.balance import (
+    add_data_augmentation,
     balance_downsample,
     balance_upsample,
     filtr_nan,
@@ -12,7 +24,11 @@ from audioanalysisdetector_tpu_torch.data.bucketing import (
     bucketed_batches,
     make_bucket_ladder,
 )
-from audioanalysisdetector_tpu_torch.data.dataset import chunk_rows, prepare_dataframe
+from audioanalysisdetector_tpu_torch.data.dataset import (
+    chunk_rows,
+    prepare_dataframe,
+    prepare_dirs_dataset,
+)
 from audioanalysisdetector_tpu_torch.data.metadata import (
     detect_columns,
     prepare_filepaths,
@@ -27,7 +43,11 @@ from audioanalysisdetector_tpu_torch.data.scaler import FrameScaler, prepare_tra
 from audioanalysisdetector_tpu_torch.data.shape_utils import prepare_data_gmm_bilstm
 
 __all__ = [
+    "AUG_CODES",
     "FrameScaler",
+    "add_data_augmentation",
+    "add_noise",
+    "apply_augmentations",
     "balance_downsample",
     "balance_upsample",
     "bucket_for",
@@ -39,9 +59,15 @@ __all__ = [
     "extract_features",
     "filtr_nan",
     "make_bucket_ladder",
+    "pitch_shift",
     "prepare_data_gmm_bilstm",
     "prepare_dataframe",
+    "prepare_dirs_dataset",
     "prepare_filepaths",
     "prepare_train_test_data",
     "read_metadata",
+    "resample_to",
+    "spec_augment",
+    "time_shift",
+    "time_stretch",
 ]

@@ -13,12 +13,17 @@ make, so both packages pick the same rows in the same order.
   ``downsampled_dataset`` compares DataFrames with ``<``,
   reference/ASV_dl_func.py:132, a crash; this is what it evidently meant.)
 - ``filtr_nan``: drop rows whose feature cell is null.
-
-``add_data_augmentation`` (the reference's 0.8 / 0.5 oversampling policy)
-waits for ROADMAP Queue 1 step 11, with the augmentations.
+- ``add_data_augmentation``: the 0.8 / 0.5 oversampling policy
+  (reference/ASV_dl_func.py:96-127): with p=0.8 append one copy with a
+  random augmentation; with p=0.5 append one copy per augmentation of a
+  random 2-element augmentation pair, drawn from ``random.Random(seed)`` in
+  the JAX package's order. The augmentation is stored in a column and
+  applied on the device during extraction (``data/augment.py``).
 """
 
 from __future__ import annotations
+
+import random as _random
 
 import numpy as np
 
@@ -66,3 +71,27 @@ def filtr_nan(rows: list[dict], col_name: str = "cqcc") -> list[dict]:
     if len(out) < len(rows):
         print(f"dropped {len(rows) - len(out)} rows with empty {col_name}")
     return out
+
+
+def add_data_augmentation(
+    rows: list[dict],
+    col_name: str = "augmentationType",
+    aug_type: list[str] | None = None,
+    *,
+    seed: int | None = None,
+) -> list[dict]:
+    """Row-level augmentation oversampling, the reference's exact policy:
+    the originals (their ``col_name`` set to None) first, then the extra
+    rows in the order drawn."""
+    if aug_type is None:
+        aug_type = ["change pitch", "noise"]
+    rng = _random.Random(seed)
+    rows = [{**r, col_name: None} for r in rows]
+    extra_rows = []
+    for row in rows:
+        if rng.random() < 0.8:
+            extra_rows.append({**row, col_name: rng.choice(aug_type)})
+        if rng.random() < 0.5 and len(aug_type) > 1:
+            for aug in rng.sample(aug_type, 2):
+                extra_rows.append({**row, col_name: aug})
+    return rows + extra_rows

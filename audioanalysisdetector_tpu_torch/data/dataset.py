@@ -1,7 +1,8 @@
 """Dataset assembly: duration probing, 2-s chunking, balancing, sampling.
 
 Counterpart of the JAX package's ``data/dataset.py`` (the reference's
-``prepare_dataframe``, reference/ASV_dl_func.py:247-340), without pandas:
+``prepare_dataframe``, reference/ASV_dl_func.py:247-340, and
+``prepare_dirs_dataset``, :165-244), without pandas:
 tables are lists of row dicts, and every draw is the one the JAX package's
 pandas calls make, so both packages emit the same rows in the same order.
 Every audio file is probed (header only, no decode), files shorter than the
@@ -9,10 +10,7 @@ chunk length are skipped with a warning, and one row per full chunk is
 emitted with ``chunk_index``/``chunk_start``/``chunk_end``. Per-class
 balancing downsamples to the minimum class subject to a minimum count; a
 rescue CSV snapshots the expensive scan (written with the ``csv`` module:
-the same columns and rows as pandas' ``to_csv``, index first).
-
-``prepare_dirs_dataset`` (the "in the wild" directory layout) waits for
-ROADMAP Queue 1 step 11.
+the same columns and rows as pandas' ``to_csv``).
 """
 
 from __future__ import annotations
@@ -71,14 +69,15 @@ def _balance_downsample(
     return out
 
 
-def _write_rescue_csv(path: str, rows: list[dict]) -> None:
-    """pandas ``to_csv`` of the rows: an index column, then every column."""
+def _write_rescue_csv(path: str, rows: list[dict], *, index: bool = True) -> None:
+    """pandas ``to_csv(index=index)`` of the rows: an index column if
+    ``index``, then every column."""
     cols = list(dict.fromkeys(k for r in rows for k in r))
     with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow([""] + cols)
+        w = csv.writer(f, lineterminator="\n")  # pandas' line ending, not csv's "\r\n"
+        w.writerow(([""] if index else []) + cols)
         for i, r in enumerate(rows):
-            w.writerow([i] + ["" if r.get(c) is None else r[c] for c in cols])
+            w.writerow(([i] if index else []) + ["" if r.get(c) is None else r[c] for c in cols])
 
 
 def prepare_dataframe(
@@ -134,3 +133,43 @@ def prepare_dataframe(
         return []
     cols = [c for c in dfs[0][0] if all(c in rows[0] for rows in dfs)]
     return [{c: r[c] for c in cols} for rows in dfs for r in rows]
+
+
+def prepare_dirs_dataset(
+    dir_path: str,
+    *,
+    balance: bool = True,
+    min_per_class: dict[str, int] | None = None,
+    sample_size: int | None = 5000,
+    chunk_seconds: float = 2.0,
+    rescue_dir: str | None = ".",
+    seed: int = 42,
+) -> list[list[dict]]:
+    """Chunked datasets, one table per subset, from
+    ``dir/{train,val,test}/{label}/file`` layouts ("in the wild" data,
+    reference/ASV_dl_func.py:165-244)."""
+    if min_per_class is None:
+        min_per_class = {"train": 300, "val": 10, "test": 5}
+    dfs = []
+    subsets = [d for d in sorted(os.listdir(dir_path)) if os.path.isdir(os.path.join(dir_path, d))]
+    for subset in subsets:
+        set_path = os.path.join(dir_path, subset)
+        records = []
+        for label in sorted(os.listdir(set_path)):
+            label_path = os.path.join(set_path, label)
+            if not os.path.isdir(label_path):
+                continue
+            for file in sorted(os.listdir(label_path)):
+                records.append({"set": subset, "filepath": os.path.join(label_path, file), "label": label})
+        rows = chunk_rows(records, path_col="filepath", chunk_seconds=chunk_seconds)
+        if not rows:
+            print(f"no data in {subset}, skipping")
+            continue
+        if rescue_dir is not None:
+            _write_rescue_csv(os.path.join(rescue_dir, f"{subset}_ratunkowe.csv"), rows, index=False)
+        if balance:
+            rows = _balance_downsample(rows, min_per_class.get(subset, 5), seed=seed)
+        if sample_size and len(rows) > sample_size:
+            rows = sample_rows(rows, sample_size, seed)
+        dfs.append(rows)
+    return dfs

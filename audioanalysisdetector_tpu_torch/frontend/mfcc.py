@@ -1,20 +1,48 @@
-"""Delta features and CMVN (librosa-parity, batched, PyTorch).
+"""MFCC + delta features + CMVN (librosa-parity, batched, PyTorch).
 
-Counterpart of the part of the JAX package's ``frontend/mfcc.py`` that the
-fused GMM arm needs (``train/gmm_system.py``'s frame transform): ``delta``,
-``add_deltas`` and ``cmvn``. Deltas follow ``librosa.feature.delta``
-(Savitzky-Golay, ``width=9``, ``mode='interp'``), folded into one host-built
-``(T, T)`` operator applied as a GEMM; ``_savgol_delta_matrix`` is a copy of
-the JAX package's. ``mfcc`` itself, ``MFCCConfig`` and ``mfcc_deltas_cmvn``
-wait for ROADMAP Queue 1 step 10 (the remaining frontends).
+Counterpart of the JAX package's ``frontend/mfcc.py``. The reference's MFCC
+is ``librosa.feature.mfcc(y, sr, n_mfcc=13)`` (reference/ASV_dl_func.py:416)
+with librosa defaults: 128-mel power spectrogram -> ``power_to_db`` (ref=1,
+top_db=80, the clip relative to the per-utterance max) -> orthonormal
+DCT-II over the mel axis -> first ``n_mfcc`` rows. On a CUDA tensor the mel
+power runs through the kernel ``frontend.mel.mel_route`` names (K3,
+``ops/ct_mel``, at the default n_fft 2048 / hop 512).
+
+Deltas follow ``librosa.feature.delta`` (Savitzky-Golay, ``width=9``,
+``mode='interp'``), folded into one host-built ``(T, T)`` operator applied
+as a GEMM; ``_savgol_delta_matrix`` is a copy of the JAX package's.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
+from audioanalysisdetector_tpu_torch.frontend.dct import dct_ii
+from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, melspectrogram
+
+
+@dataclass(frozen=True)
+class MFCCConfig:
+    n_mfcc: int = 13
+    mel: MelConfig = field(default_factory=lambda: MelConfig(n_mels=128))
+    # librosa.feature.mfcc dB settings (power_to_db defaults)
+    ref: float | str = 1.0
+    top_db: float | None = 80.0
+
+    @staticmethod
+    def for_sr(sr: int, n_mfcc: int = 13) -> "MFCCConfig":
+        return MFCCConfig(n_mfcc=n_mfcc, mel=MelConfig(sr=sr, n_mels=128))
+
+
+def mfcc(y: torch.Tensor, cfg: MFCCConfig = MFCCConfig()) -> torch.Tensor:
+    """MFCCs of ``(..., n)`` waveforms -> ``(..., n_mfcc, T)``."""
+    S = power_to_db(melspectrogram(y, cfg.mel), ref=cfg.ref, top_db=cfg.top_db, utt_axes=2)
+    return dct_ii(S, axis=-2, n_out=cfg.n_mfcc)
 
 
 @lru_cache(maxsize=None)
@@ -63,3 +91,12 @@ def cmvn(
     if variance:
         out = out / torch.sqrt(feat.var(dim=axis, keepdim=True, correction=0) + eps)
     return out
+
+
+def mfcc_deltas_cmvn(y: torch.Tensor, cfg: MFCCConfig = MFCCConfig(), *, width: int = 9) -> torch.Tensor:
+    """BASELINE config #2: MFCC + delta/delta-delta + per-utterance CMVN.
+
+    ``(..., n) -> (..., 3 * n_mfcc, T)``.
+    """
+    feat = add_deltas(mfcc(y, cfg), width=width, axis=-1)
+    return cmvn(feat, axis=-1)

@@ -18,6 +18,9 @@ Two spectrum paths, as in the JAX package:
   ``power_spectrogram`` itself is the plain chain.
 - ``method="fft"``: ``torch.fft.rfft`` over the windowed frames.
 
+``stft`` returns the complex STFT (``torch.fft.rfft`` or the two GEMMs);
+``stft_realimag`` returns the matmul DFT as separate real and imaginary
+parts, which the phase vocoder (``data/augment.py``) reads its phases from.
 The JAX package's ``method="block"`` (hop-block DFT decomposition) was
 measured and rejected there and is not ported.
 
@@ -153,3 +156,51 @@ def power_spectrogram(
     else:
         raise ValueError(f"unknown stft method {method!r}")
     return magnitude_power(mag2, power).transpose(-1, -2)
+
+
+def stft(
+    y: torch.Tensor,
+    *,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: int | None = None,
+    window: str = "hann",
+    center: bool = True,
+    pad_mode: str = "reflect",
+    method: str = "fft",
+) -> torch.Tensor:
+    """Complex STFT of ``(..., n)`` signals -> ``(..., n_fft//2+1, n_frames)``."""
+    win_length = n_fft if win_length is None else win_length
+    if method == "fft":
+        frames = frame_signal(y, n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
+        w = torch.from_numpy(_window_array(window, win_length, n_fft)).to(frames.device, frames.dtype)
+        spec = torch.fft.rfft(frames * w, dim=-1)
+    elif method == "matmul":
+        re, im = stft_realimag(
+            y, n_fft=n_fft, hop_length=hop_length, win_length=win_length, window=window,
+            center=center, pad_mode=pad_mode,
+        )
+        return torch.complex(re, im)
+    else:
+        raise ValueError(f"unknown stft method {method!r}")
+    return spec.transpose(-1, -2)
+
+
+def stft_realimag(
+    y: torch.Tensor,
+    *,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    win_length: int | None = None,
+    window: str = "hann",
+    center: bool = True,
+    pad_mode: str = "reflect",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """STFT as separate (re, im) real tensors, each ``(..., F, T)``: the
+    frames against the windowed cos/sin bases, two GEMMs, no complex dtype."""
+    win_length = n_fft if win_length is None else win_length
+    frames = frame_signal(y, n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
+    cos_b, sin_b = _rdft_bases_on(n_fft, window, win_length, frames.device)
+    re = frames @ cos_b.to(frames.dtype)
+    im = frames @ sin_b.to(frames.dtype)
+    return re.transpose(-1, -2), im.transpose(-1, -2)

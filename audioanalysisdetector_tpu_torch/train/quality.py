@@ -78,20 +78,17 @@ def build_cqcc_arrays(
 
     ``return_attack=True`` appends the per-chunk attack-system ids
     (metadata ``attack_id`` column, '-'/'bonafide' for genuine speech) for
-    per-tier EER. ``augment=True`` (the reference's row-expansion policy)
-    waits for ROADMAP Queue 1 step 11 and raises."""
+    per-tier EER. ``augment=True`` applies the reference's row-expansion
+    policy (reference/ASV_dl_func.py:96-127: p=0.8 one augmentation, p=0.5
+    a pair — pitch/noise, applied on ``device`` during extraction) to the
+    split before feature extraction; train-split only."""
     import numpy as np
 
-    from audioanalysisdetector_tpu_torch.data.balance import balance_upsample
+    from audioanalysisdetector_tpu_torch.data.balance import add_data_augmentation, balance_upsample
     from audioanalysisdetector_tpu_torch.data.dataset import prepare_dataframe
     from audioanalysisdetector_tpu_torch.data.pipeline import extract_features
     from audioanalysisdetector_tpu_torch.data.shape_utils import prepare_data_gmm_bilstm
 
-    if augment:
-        raise NotImplementedError(
-            "augment=True: augmentation is not ported to audioanalysisdetector_tpu_torch yet "
-            "(ROADMAP Queue 1 step 11)"
-        )
     all_data = {name: {"metadata": metadata, "flac": list(audio_dirs)}}
     rows = prepare_dataframe(
         all_data, balance=False, sample_size=sample_size,
@@ -99,6 +96,8 @@ def build_cqcc_arrays(
     )
     if not rows:
         raise SystemExit(f"no usable utterances from {metadata}")
+    if augment:
+        rows = add_data_augmentation(rows, seed=seed)
     rows = extract_features(rows, ["cqcc"], sr=sr, seed=seed, device=device)
     rows = prepare_data_gmm_bilstm(rows)  # filtr_nan + time-major transpose
     for r in rows:
@@ -122,11 +121,6 @@ def run_surrogate_quality(workdir: str, *, recipe: dict | None = None, device: s
     from audioanalysisdetector_tpu_torch.data.synthetic import make_surrogate_corpus
 
     r = recipe or RECIPE
-    if r.get("augment"):
-        raise NotImplementedError(
-            "recipe augment=True: augmentation is not ported to audioanalysisdetector_tpu_torch "
-            "yet (ROADMAP Queue 1 step 11)"
-        )
     tr_meta, tr_dir = make_surrogate_corpus(
         os.path.join(workdir, "train"), subset="train", **r["train"]
     )
@@ -148,6 +142,8 @@ def run_surrogate_quality(workdir: str, *, recipe: dict | None = None, device: s
         argv.append("--gmm-deltas")
     if r.get("gmm_cmvn"):
         argv.append("--gmm-cmvn")
+    if r.get("augment"):
+        argv.append("--augment")
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = main(argv)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -77,7 +77,23 @@ each print their lines:
     ``train-fused`` CLI over 64 WAVs and ``train-asvspoof`` on a reduced v5
     surrogate corpus (its cuts in ``phase_gmm_train``), with the time of
     each stage. No TPU kernel is on this path: plain PyTorch;
-12. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+12. features: the slice's extractors on 8192 two-second utterances made on
+    the card: the seven ``data.pipeline.default_extractors`` (mfcc, lfcc,
+    cqcc, gtcc, wpt, mel_spectrogram, mfcc_deltas) plus
+    ``melspectrogram_znorm`` and ``compute_cqt_spec``, each at B=8192
+    against the port on the CPU (256 rows), with ms per batch, utt/s and
+    peak memory; the mel features run K3 and count its launches; K3 at 128
+    mels (the MFCC configuration) against its plain version, bound and
+    cuFFT chain; ``apply_augmentations`` on a none/pitch/noise mix (pitch
+    rows against the CPU, the noise rows' residual std, none rows
+    unchanged) and a full-batch pitch shift, with ms and peak memory; the
+    iSTFT round trip; the formants cells over 16 files against the CPU; the
+    ``extract`` CLI in subprocesses over 64 WAVs (mfcc and lfcc) against
+    ``extract_feature_array``; the ``augment`` CLI over 8 WAVs (24 files);
+    ``train-asvspoof --augment`` on phase 11's corpus (finite EERs, more
+    train rows than without). Apart from K3 under the mel features, the
+    path ran on XLA in the JAX package: plain PyTorch;
+13. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -88,11 +104,14 @@ are random, from a seed.
 
 from __future__ import annotations
 
+import atexit
 import base64
 import contextlib
+import functools
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -122,6 +141,7 @@ from audioanalysisdetector_tpu_torch.frontend.mel import (
     mel_route,
     melspectrogram,
 )
+from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import (
     _window_array,
     center_pad,
@@ -245,6 +265,32 @@ MAP_RTOL = 2e-4
 # by ~4e-6, and that decides whether the stop falls one iteration earlier
 # or later (measured 30 against 31 iterations, parameters 1.3e-2 apart).
 GMM_DEVICE_RTOL = 1e-4
+# Phase 12, each extractor at B=8192 on the card against the port on the
+# CPU (256 rows), max |card - CPU| relative to each row's largest |value|:
+# fp32 GEMMs (cuBLAS, TF32 off) and cuDNN's conv1d summed in other orders,
+# K3's FFT against the plain DFT chain under the mel features, through
+# log/dB, the DCT and the z-norms. An H100 read 2.8e-7 (wpt) to 1.2e-6
+# (melspectrogram_znorm), and 1.3e-4 for compute_cqt_spec, whose deepest
+# bins' dB (at -80 dB from the utterance's max) carry the CQT's rounding
+FEATURE_RTOL = {"mfcc": 1e-4, "lfcc": 1e-4, "cqcc": 1e-3, "gtcc": 1e-4, "wpt": 1e-4,
+                "mel_spectrogram": 1e-4, "mfcc_deltas": 1e-3, "melspectrogram_znorm": 1e-3,
+                "compute_cqt_spec": 1e-3}
+# pitch-shifted rows, card against CPU, relative to each row's peak, inside
+# and in the last n_fft samples (tests/test_torch_augment.py's bands for
+# the CPU against the JAX package): the phase vocoder's cumulative phase
+# reaches ~1e4 rad, where one float32 ulp is ~1e-3 rad, and the card's
+# parallel scan rounds it otherwise than the CPU's sequential cumsum; the
+# iSTFT divides that by a squared-window sum that falls in the tail (an
+# H100 read 1.7e-3 inside and 1.8e-3 in the tail on phase 12's noise; the
+# CPU against JAX 1.5e-2 in the tail of a tone)
+PITCH_RTOL, PITCH_TAIL_RTOL, PITCH_TAIL = 5e-3, 3e-2, 2048
+# the noise rows' residual std against the factor (0.005), over ~87M draws
+# (an H100 read 0.005000)
+NOISE_STD_TOL = 5e-5
+# the extract CLI against extract_feature_array on the same rows and batch
+# size, on the card, relative to each row's largest |value| (an H100 read
+# 0: the same kernels on the same shapes)
+EXTRACT_CLI_RTOL = 1e-5
 KERNEL_SOURCES = {
     "wave_mel": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/wave_mel.py:63"),
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
@@ -1249,8 +1295,8 @@ def print_breakdown(path: str, fn) -> None:
         print(f"  {k_ms:8.3f} ms  x{k_n}  {name[:100]}", flush=True)
 
 
-def cli_json(argv: list[str]) -> dict:
-    """The port's CLI in this process on the card; its last stdout line as JSON."""
+def cli_main_quiet(argv: list[str]) -> str:
+    """The port's CLI in this process on the card; its stdout. Fails on a nonzero exit."""
     from audioanalysisdetector_tpu_torch.cli.main import main as cli_main
 
     buf = io.StringIO()
@@ -1258,7 +1304,12 @@ def cli_json(argv: list[str]) -> dict:
         rc = cli_main(argv)
     if rc != 0:
         raise AssertionError(f"{argv[0]} CLI exited {rc}:\n{buf.getvalue()[-4000:]}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    return buf.getvalue()
+
+
+def cli_json(argv: list[str]) -> dict:
+    """The port's CLI in this process on the card; its last stdout line as JSON."""
+    return json.loads(cli_main_quiet(argv).strip().splitlines()[-1])
 
 
 def gmm_rel_diff(a, b) -> float:
@@ -1272,6 +1323,27 @@ def finite_eers(out: dict, where: str) -> None:
             *out["fused"].get("per_tier_eer", {}).values()]
     if not all(np.isfinite(e) and 0.0 <= e <= 1.0 for e in eers):
         raise AssertionError(f"{where}: EERs not finite in [0, 1]: {out}")
+
+
+@functools.cache
+def reduced_v5_corpus() -> dict:
+    """Phase 11's reduced v5 surrogate corpus, synthesised once per run into
+    a directory removed at exit: {split: (metadata, audio dir)}."""
+    from audioanalysisdetector_tpu_torch.data.synthetic import make_surrogate_corpus
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_v5_")
+    atexit.register(shutil.rmtree, d, True)
+    return {split: make_surrogate_corpus(os.path.join(d, split), subset=split, seconds=4.5, seed=seed,
+                                         channel="varied", **n)
+            for split, seed, n in (("train", 0, dict(n_bonafide=6, n_spoof_per_tier=2)),
+                                   ("eval", 1, dict(n_bonafide=12, n_spoof_per_tier=4)))}
+
+
+def asvspoof_argv(corpus: dict, run_dir: str) -> list[str]:
+    """``train-asvspoof`` on the reduced corpus with recipe v5's fusion, 3 epochs."""
+    return ["train-asvspoof", corpus["train"][0], corpus["eval"][0], "--audio-dir", corpus["train"][1],
+            corpus["eval"][1], "--epochs", "3", "--hidden", "64", "--gmm-components", "128", "--lr", "3e-4",
+            "--gmm-cmvn", "--fusion-weight", "0.5", "--run-dir", run_dir, "--device", DEVICE]
 
 
 def phase_gmm_train() -> None:
@@ -1291,7 +1363,6 @@ def phase_gmm_train() -> None:
     package), so it runs plain PyTorch: cuBLAS SGEMM and elementwise passes.
     """
     from audioanalysisdetector_tpu_torch.cli import main as cli_mod
-    from audioanalysisdetector_tpu_torch.data.synthetic import make_surrogate_corpus
     from audioanalysisdetector_tpu_torch.train import gmm_system, loop, quality
 
     # 1. UBM EM at the reference's scale, flat then chunked
@@ -1415,19 +1486,13 @@ def phase_gmm_train() -> None:
 
         # 5. train-asvspoof on the reduced v5 surrogate corpus
         t0 = time.perf_counter()
-        corpus = {split: make_surrogate_corpus(os.path.join(d, split), subset=split, seconds=4.5, seed=seed,
-                                               channel="varied", **n)
-                  for split, seed, n in (("train", 0, dict(n_bonafide=6, n_spoof_per_tier=2)),
-                                         ("eval", 1, dict(n_bonafide=12, n_spoof_per_tier=4)))}
+        corpus = reduced_v5_corpus()
         stages = {"synthesis": time.perf_counter() - t0}
         with stage_timer(quality, "build_cqcc_arrays", stages), stage_timer(loop, "bilstm_pipeline", stages), \
                 stage_timer(gmm_system, "train_gmm_system", stages), \
                 stage_timer(cli_mod, "_eval_fused_system", stages):
             t0 = time.perf_counter()
-            asv = cli_json(["train-asvspoof", corpus["train"][0], corpus["eval"][0], "--audio-dir",
-                            corpus["train"][1], corpus["eval"][1], "--epochs", "3", "--hidden", "64",
-                            "--gmm-components", "128", "--lr", "3e-4", "--gmm-cmvn", "--fusion-weight", "0.5",
-                            "--run-dir", os.path.join(d, "asv_run"), "--device", DEVICE])
+            asv = cli_json(asvspoof_argv(corpus, os.path.join(d, "asv_run")))
             stages["cli_total"] = time.perf_counter() - t0
     log("gmm-train", cli="train-asvspoof", json=json.dumps(asv, separators=(",", ":")))
     log("gmm-train", cli="train-asvspoof", **{f"{k}_s": f"{v:.2f}" for k, v in stages.items()})
@@ -1437,6 +1502,232 @@ def phase_gmm_train() -> None:
         raise AssertionError(f"train-asvspoof: n_train/n_eval or tiers wrong: {asv}")
     finite_eers(asv, "train-asvspoof")
     free()
+
+
+def feature_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| relative to each row's largest |ref| (rows on axis 0)."""
+    got, ref = got.double(), ref.double()
+    peak = ref.abs().reshape(len(ref), -1).amax(dim=1).clamp_min(1e-30)
+    return float(((got - ref).abs().reshape(len(ref), -1).amax(dim=1) / peak).max())
+
+
+def pitch_error(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """Pitch rows' error relative to each row's peak: (inside, last PITCH_TAIL samples)."""
+    err = (got.double() - ref.double()).abs() / ref.double().abs().amax(dim=-1, keepdim=True)
+    return float(err[:, :-PITCH_TAIL].max()), float(err[:, -PITCH_TAIL:].max())
+
+
+def formant_rows(rng, n: int = 16) -> list[np.ndarray]:
+    """Crude vowels: noise through two AR(2) resonators (F1, F2 drawn per
+    file), a stretch of silence in each."""
+    out = []
+    for _ in range(n):
+        e = rng.standard_normal(N_SAMPLES) * 0.01
+        for f0 in (rng.uniform(400, 900), rng.uniform(1200, 2400)):
+            a1, a2 = -2 * 0.97 * np.cos(2 * np.pi * f0 / SR), 0.97**2
+            y = np.zeros_like(e)
+            for t in range(2, len(e)):
+                y[t] = e[t] - a1 * y[t - 1] - a2 * y[t - 2]
+            e = y
+        e = e / np.abs(e).max() * 0.5
+        start = int(rng.integers(4000, 20000))
+        e[start : start + 6000] = 0.0
+        out.append(e)
+    return out
+
+
+def phase_features() -> dict:
+    """The slice's extractors and augmentations on the card (B=8192 two-second
+    utterances made there): each registry extractor plus the EDA
+    spectrograms against the CPU, timed; K3 at 128 mels against its plain
+    version, bound and cuFFT chain; ``apply_augmentations`` on a
+    none/pitch/noise mix and a full-batch pitch shift; the iSTFT round trip;
+    the formants cells over 16 files; the ``extract`` CLI (subprocesses, mfcc
+    and lfcc) against ``extract_feature_array``; the ``augment`` CLI; and
+    ``train-asvspoof --augment`` on phase 11's corpus. Returns the launches
+    of K3 on the feature paths. The mel features run K3 (``mel_route`` at
+    n_fft 2048 / hop 512); the rest ran on XLA in the JAX package, so it is
+    plain PyTorch here (cuBLAS, cuDNN, elementwise passes)."""
+    from audioanalysisdetector_tpu_torch.data.augment import (
+        AUG_NOISE,
+        AUG_NONE,
+        AUG_PITCH,
+        apply_augmentations,
+        pitch_shift,
+    )
+    from audioanalysisdetector_tpu_torch.data.pipeline import default_extractors, extract_feature_array, extract_features
+    from audioanalysisdetector_tpu_torch.frontend.eda import compute_cqt_spec, melspectrogram_znorm
+    from audioanalysisdetector_tpu_torch.frontend.istft import istft
+    from audioanalysisdetector_tpu_torch.frontend.stft import stft_realimag
+
+    launches = 0
+    wav = waves(BATCH, 12)
+    wav_cpu = wav[:256].cpu()
+    extractors = {**default_extractors(SR), "melspectrogram_znorm": melspectrogram_znorm,
+                  "compute_cqt_spec": compute_cqt_spec}
+    on_k3 = ("mfcc", "mel_spectrogram", "mfcc_deltas", "melspectrogram_znorm")
+    with torch.no_grad():
+        # 1. each extractor at B=8192: the counted run, peak memory, time, the CPU's 256 rows
+        for name, fn in extractors.items():
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            out, counts = run_counted(lambda: fn(wav))
+            peak = torch.cuda.max_memory_allocated()
+            if name in on_k3:
+                launches += expect_launched(counts, "ct_mel", f"features {name}")
+            elif any(counts.values()):
+                raise AssertionError(f"features {name}: launched {counts}, no kernel is on its path")
+            if out.device.type != torch.device(DEVICE).type or out.shape[0] != BATCH or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"features {name}: {tuple(out.shape)} on {out.device}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+            ms = cuda_ms(lambda: fn(wav), 3)
+            err = feature_error(out[:256].cpu(), fn(wav_cpu))
+            log("features", name=name, batch=BATCH, shape="x".join(map(str, out.shape[1:])),
+                ct_mel_launches=counts["ct_mel"], ms=f"{ms:.3f}", utt_per_s=f"{BATCH / ms * 1e3:.1f}",
+                peak_mem_gb=f"{peak / 1e9:.3f}", rel_err_vs_cpu=f"{err:.3e}")
+            if err > FEATURE_RTOL[name]:
+                raise AssertionError(f"features {name}: card vs CPU {err:.3e} > {FEATURE_RTOL[name]}")
+            if name in ("mel_spectrogram", "lfcc", "compute_cqt_spec"):
+                print_breakdown(name, lambda: fn(wav))
+            del out
+
+        # 2. K3 at 128 mels (the MFCC configuration): kernel, plain, cuFFT chain, bound
+        cfg = MFCCConfig.for_sr(SR).mel
+        T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+        padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
+        k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
+        library = stft_chain(padded, cfg)
+        k3_err = rel_err(k3(), ctm.ct_mel_reference(padded, cfg, n_frames=T))
+        t = in_turns(k3, lambda: ctm.ct_mel_reference(padded, cfg, n_frames=T), library)
+        bound = mel_bound(cfg, BATCH * T, padded.numel() * 4)
+        log("features", k3_n_mels=cfg.n_mels, batch=BATCH, kernel_ms=f"{t['ms']:.3f}",
+            plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.3f,%.3f" % t["runs"],
+            plain_runs="%.3f,%.3f" % t["plain_runs"], rel_err_vs_plain=f"{k3_err:.3e}", **bound_fields(t, bound))
+        if k3_err > REL_TOL:
+            raise AssertionError(f"K3 at 128 mels: {k3_err:.3e} > {REL_TOL}")
+        del padded, library
+        free()
+
+        # 3. apply_augmentations on a none/pitch/noise mix, then a full-batch pitch shift
+        codes = torch.arange(BATCH, device=DEVICE) % 3  # AUG_NONE, AUG_PITCH, AUG_NOISE
+        torch.cuda.reset_peak_memory_stats()
+        aug = apply_augmentations(wav, codes, torch.Generator(device=DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        mix_ms = cuda_ms(lambda: apply_augmentations(wav, codes, gen), 2)
+        none_same = bool(torch.equal(aug[codes == AUG_NONE], wav[codes == AUG_NONE]))
+        noise_std = float((aug[codes == AUG_NOISE] - wav[codes == AUG_NOISE]).std())
+        pitch_rows = torch.nonzero(codes[:256] == AUG_PITCH).reshape(-1)
+        inside, tail = pitch_error(aug[pitch_rows].cpu(), pitch_shift(wav_cpu[pitch_rows.cpu()]))
+        log("features", augment="none/pitch/noise", batch=BATCH, ms=f"{mix_ms:.3f}",
+            peak_mem_gb=f"{peak / 1e9:.3f}", none_rows_unchanged=none_same,
+            noise_residual_std=f"{noise_std:.6f}", pitch_rows_vs_cpu=len(pitch_rows),
+            pitch_rel_err=f"{inside:.3e}", pitch_tail_rel_err=f"{tail:.3e}")
+        if not none_same or abs(noise_std - 0.005) > NOISE_STD_TOL or inside > PITCH_RTOL or tail > PITCH_TAIL_RTOL:
+            raise AssertionError(f"apply_augmentations: none rows unchanged {none_same}, noise std "
+                                 f"{noise_std:.6f}, pitch {inside:.3e} / {tail:.3e}")
+        print_breakdown("apply_augmentations", lambda: apply_augmentations(wav, codes, gen))
+        del aug
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        pitch_ms = cuda_ms(lambda: pitch_shift(wav), 1)
+        log("features", pitch_shift_full_batch=BATCH, ms=f"{pitch_ms:.3f}",
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        free()
+        re, im = stft_realimag(wav)
+        back = istft(re, im, length=N_SAMPLES)
+        trip = float((back - wav)[:, 2048:-2048].abs().max())
+        log("features", istft_round_trip_max_err=f"{trip:.3e}")
+        if trip > 1e-5:
+            raise AssertionError(f"istft(stft_realimag(x)) round trip {trip:.3e} > 1e-5")
+        del re, im, back, wav
+        free()
+
+    with tempfile.TemporaryDirectory() as d:
+        # 4. the formants cells over 16 files, card against CPU
+        rng = np.random.default_rng(12)
+        fdir = os.path.join(d, "formants")
+        os.mkdir(fdir)
+        rows = []
+        for i, y in enumerate(formant_rows(rng)):
+            rows.append({"file_path": os.path.join(fdir, f"v{i:02d}.wav"), "chunk_start": 0.0, "chunk_end": 2.0})
+            write_wav(rows[-1]["file_path"], y, SR)
+        t0 = time.perf_counter()
+        card = extract_features(rows, ["formants"], batch_size=16, device=DEVICE)
+        wall = time.perf_counter() - t0
+        cpu = extract_features(rows, ["formants"], batch_size=16, device="cpu")
+        diff, counts_equal = 0.0, True
+        for a, b in zip(card, cpu):
+            a, b = a["formants"], b["formants"]
+            if list(a) != list(b):
+                raise AssertionError(f"formants: keys {list(a)} != {list(b)}")
+            counts_equal &= all(a[k] == b[k] for k in b if isinstance(b[k], int))
+            diff = max(diff, max(abs(a[k] - b[k]) for k in b if not isinstance(b[k], int)))
+        log("features", formants_files=len(rows), wall_s=f"{wall:.2f}", counts_equal=counts_equal,
+            max_float_diff_vs_cpu=f"{diff:.3e}", f1_segments=sum(c["formants"]["f1_total_segments"] for c in card))
+        if not counts_equal or diff > 1e-6:
+            raise AssertionError(f"formants card vs CPU: counts equal {counts_equal}, floats {diff:.3e}")
+
+        # 5. the extract CLI in subprocesses (mfcc, lfcc at once) against extract_feature_array
+        audio = os.path.join(d, "audio")
+        os.mkdir(audio)
+        t = np.arange(N_SAMPLES) / SR
+        for i in range(64):
+            y = rng.standard_normal(N_SAMPLES) * 0.05 + 0.2 * np.sin(2 * np.pi * rng.uniform(200, 4000) * t)
+            write_wav(os.path.join(audio, f"u{i:02d}.wav"), np.clip(y, -0.999, 0.999), SR)
+        t0 = time.perf_counter()
+        procs = {f: subprocess.Popen(
+            [sys.executable, "-m", "audioanalysisdetector_tpu_torch", "extract", audio, "--feature", f,
+             "--batch-size", "64", "--output", os.path.join(d, f"{f}.npz"), "--device", DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT) for f in ("mfcc", "lfcc")}
+        outs = {f: p.communicate(timeout=600) for f, p in procs.items()}
+        wall = time.perf_counter() - t0
+        registry = default_extractors(SR)
+        for f, (_, err_text) in outs.items():
+            if procs[f].returncode != 0:
+                raise AssertionError(f"extract CLI ({f}) exited {procs[f].returncode}:\n{err_text[-4000:]}")
+            counts = json.loads(err_text.strip().splitlines()[-1])["kernel_launches"]
+            if f == "mfcc":
+                launches += expect_launched(counts, "ct_mel", "extract CLI mfcc")
+            with np.load(os.path.join(d, f"{f}.npz")) as z:
+                files, feats = list(z["files"]), z["features"]
+            ref, ok = extract_feature_array([{"file_path": p} for p in files], registry[f], batch_size=64,
+                                            device=DEVICE)
+            err = feature_error(torch.from_numpy(feats), torch.from_numpy(ref))
+            log("features", cli="extract", feature=f, files=len(files), shape="x".join(map(str, feats.shape)),
+                launches=json.dumps(counts, separators=(",", ":")), rel_err_vs_pipeline=f"{err:.3e}",
+                wall_s=f"{wall:.1f}")
+            if len(files) != 64 or not ok.all() or err > EXTRACT_CLI_RTOL:
+                raise AssertionError(f"extract CLI ({f}): {len(files)} files, {err:.3e} > {EXTRACT_CLI_RTOL}")
+
+        # 6. the augment CLI over 8 WAVs: noise, pitch and shift variants of each
+        few = os.path.join(d, "few")
+        os.mkdir(few)
+        for i in range(8):
+            shutil.copy(os.path.join(audio, f"u{i:02d}.wav"), few)
+        out_dir = os.path.join(d, "augmented")
+        t0 = time.perf_counter()
+        cli_main_quiet(["augment", few, "--output-dir", out_dir, "--device", DEVICE])
+        written = sorted(os.listdir(out_dir))
+        log("features", cli="augment", files=8, written=len(written), wall_s=f"{time.perf_counter() - t0:.2f}")
+        if len(written) != 24:
+            raise AssertionError(f"augment CLI wrote {len(written)} files, not 24")
+
+    # 7. train-asvspoof --augment on phase 11's reduced corpus
+    with tempfile.TemporaryDirectory() as d:
+        corpus = reduced_v5_corpus()
+        t0 = time.perf_counter()
+        plain = cli_json(asvspoof_argv(corpus, os.path.join(d, "plain")))
+        augmented = cli_json(asvspoof_argv(corpus, os.path.join(d, "augmented")) + ["--augment"])
+    log("features", cli="train-asvspoof --augment", json=json.dumps(augmented, separators=(",", ":")))
+    log("features", cli="train-asvspoof --augment", n_train=augmented["n_train"],
+        n_train_without=plain["n_train"], wall_s=f"{time.perf_counter() - t0:.2f}")
+    finite_eers(augmented, "train-asvspoof --augment")
+    if augmented["n_train"] <= plain["n_train"] or augmented["n_eval"] != plain["n_eval"]:
+        raise AssertionError(f"train-asvspoof --augment: train rows {augmented['n_train']} vs {plain['n_train']}")
+    free()
+    return {"ct_mel": launches}
 
 
 def timed_phase(phase):
@@ -1461,6 +1752,7 @@ def main() -> int:
     timed_phase(phase_fused)
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
+    launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],

@@ -6,6 +6,7 @@ JAX package pulls in jax. These tests hold each copy to the original, in
 both mel profiles, and check that the port imports without jax.
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -19,12 +20,22 @@ import audioanalysisdetector_tpu.frontend.windows as jwin
 from audioanalysisdetector_tpu.frontend.stft import _rdft_bases as j_rdft_bases
 from audioanalysisdetector_tpu.frontend.stft import _window_array as j_window_array
 from audioanalysisdetector_tpu.frontend.stft import n_frames_for as j_n_frames_for
+import audioanalysisdetector_tpu.frontend.cepstral as jcep
+import audioanalysisdetector_tpu.frontend.wpt as jwpt
+from audioanalysisdetector_tpu.data.augment import _sinc_kernel as j_sinc_kernel
+from audioanalysisdetector_tpu.frontend.istft import _irdft_bases as j_irdft_bases
 from audioanalysisdetector_tpu.ops.wave_mel import K_TILE as J_K_TILE
 from audioanalysisdetector_tpu.ops.wave_mel import _operands as j_operands
+from audioanalysisdetector_tpu_torch.data.augment import _sinc_kernel
+from audioanalysisdetector_tpu_torch.frontend import cepstral as tcep
 from audioanalysisdetector_tpu_torch.frontend import mel as tmel
-from audioanalysisdetector_tpu_torch.frontend import stft as tstft
+from audioanalysisdetector_tpu_torch.frontend import wpt as twpt
+from audioanalysisdetector_tpu_torch.frontend.istft import _irdft_bases
 from audioanalysisdetector_tpu_torch.frontend import windows as twin
 from audioanalysisdetector_tpu_torch.ops.wave_mel import K_TILE, _operands, _round_up
+
+# the package's ``stft`` is the function (as in the JAX package): bind the module
+tstft = importlib.import_module("audioanalysisdetector_tpu_torch.frontend.stft")
 
 torch.set_num_threads(2)
 
@@ -70,6 +81,55 @@ def test_wave_mel_operands_bitwise(profile):
             _same(a, b)
 
 
+@pytest.mark.parametrize("fs,nfft,nfilts,low,high", [
+    (16000, 512, 24, 0.0, None), (16000, 512, 40, 0.0, None), (8000, 256, 20, 100.0, 3500.0)])
+def test_cepstral_filterbanks_bitwise(fs, nfft, nfilts, low, high):
+    _same(tcep.linear_filterbank(nfilts, nfft, float(fs), low, high),
+          jcep.linear_filterbank(nfilts, nfft, float(fs), low, high))
+    _same(tcep.gammatone_filterbank(nfilts, nfft, float(fs), low, high),
+          jcep.gammatone_filterbank(nfilts, nfft, float(fs), low, high))
+    _same(tcep.erb_space(max(low, 26.0), high or fs / 2, nfilts), jcep.erb_space(max(low, 26.0), high or fs / 2, nfilts))
+    cfg = tcep.CepstralConfig(fs=fs, nfft=nfft, nfilts=nfilts, low_freq=low, high_freq=high, fb_kind="gammatone")
+    jcfg = jcep.CepstralConfig(fs=fs, nfft=nfft, nfilts=nfilts, low_freq=low, high_freq=high, fb_kind="gammatone")
+    assert (cfg.frame_len, cfg.hop, cfg.n_frames(32000)) == (jcfg.frame_len, jcfg.hop, jcfg.n_frames(32000))
+    _same(cfg.filterbank(), jcfg.filterbank())
+    # the JAX package builds the DFT bases inside _cepstra (frontend/cepstral.py:139-143)
+    n = np.arange(nfft)[:, None]
+    ang = 2.0 * np.pi * n * np.arange(nfft // 2 + 1)[None, :] / nfft
+    cos_b, sin_b = tcep._dft_bases(nfft, cfg.frame_len)
+    _same(cos_b, np.cos(ang)[: cfg.frame_len].astype(np.float32))
+    _same(sin_b, (-np.sin(ang))[: cfg.frame_len].astype(np.float32))
+
+
+@pytest.mark.parametrize("n_fft", [400, 512, 2048, 2049])
+def test_istft_bases_bitwise(n_fft):
+    for a, b in zip(_irdft_bases(n_fft), j_irdft_bases(n_fft)):
+        _same(a, b)
+
+
+def test_augmentation_and_pipeline_constants_match_jax():
+    """The codes, the registry's names and the layouts both packages key on."""
+    import audioanalysisdetector_tpu.data.augment as jaug
+    import audioanalysisdetector_tpu.data.pipeline as jpipe
+    import audioanalysisdetector_tpu_torch.data.augment as taug
+    import audioanalysisdetector_tpu_torch.data.pipeline as tpipe
+
+    assert taug.AUG_CODES == jaug.AUG_CODES
+    assert (taug.AUG_NONE, taug.AUG_PITCH, taug.AUG_NOISE) == (jaug.AUG_NONE, jaug.AUG_PITCH, jaug.AUG_NOISE)
+    assert tpipe.TIME_MAJOR_FEATURES == jpipe.TIME_MAJOR_FEATURES
+    assert tpipe.FORMANTS_FEATURE == jpipe.FORMANTS_FEATURE
+    assert list(tpipe.default_extractors(8000)) == list(jpipe.default_extractors(8000))
+    assert tcep._EPS == jcep._EPS
+
+
+def test_db4_and_sinc_kernel_bitwise():
+    _same(twpt._DB4_REC_LO, jwpt._DB4_REC_LO)
+    for a, b in zip(twpt.db4_decomposition_filters(), jwpt.db4_decomposition_filters()):
+        _same(a, b)
+    for taps in (8, 16, 17):
+        _same(_sinc_kernel(taps), j_sinc_kernel(taps))
+
+
 def test_port_imports_without_jax():
     """Every module of the port imports with jax, flax, optax, msgpack,
     pandas and yaml blocked (the card machine has none of them), and pulls
@@ -80,13 +140,19 @@ def test_port_imports_without_jax():
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil\n"
         "import audioanalysisdetector_tpu_torch as P\n"
-        "for mi in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
-        "    importlib.import_module(mi.name)\n"
+        "names = [mi.name for mi in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
+        "for m in ('frontend.cepstral', 'frontend.wpt', 'frontend.eda', 'frontend.istft', "
+        "'frontend.formants', 'data.augment', 'data.pipeline'):\n"
+        "    assert P.__name__ + '.' + m in names, m\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "from audioanalysisdetector_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['score', '.', '--allow-random'])\n"
         "build_parser().parse_args(['train', '.', '--epochs', '1'])\n"
         "build_parser().parse_args(['train-fused', '.', '--fusion-weight', 'auto'])\n"
-        "build_parser().parse_args(['train-asvspoof', 'a', 'b', '--audio-dir', '.', '--gmm-cmvn'])\n"
+        "build_parser().parse_args(['train-asvspoof', 'a', 'b', '--audio-dir', '.', '--gmm-cmvn', '--augment'])\n"
+        "build_parser().parse_args(['extract', '.', '--feature', 'lfcc'])\n"
+        "build_parser().parse_args(['augment', '.', '--pitch-steps', '1'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'msgpack', 'pandas', 'yaml', 'audioanalysisdetector_tpu') "
         "and sys.modules[m] is not None]\n"

@@ -197,12 +197,19 @@ def test_extract_features_cqcc_matches_jax(corpus):
 
 
 def test_extract_features_refuses_what_is_not_ported(corpus):
+    """What both packages refuse: a feature the registry lacks, and
+    mfcc_deltas under mean pooling; every registry feature and augmented
+    rows run (tests/test_torch_pipeline_features.py holds them to JAX)."""
     (meta, flac), _ = corpus
     rows = metadata.prepare_filepaths(metadata.read_metadata(meta), flac)[:2]
-    with pytest.raises(KeyError, match="step 10"):
-        pipeline.extract_features(rows, ["mfcc"], device="cpu")
-    with pytest.raises(NotImplementedError, match="step 11"):
-        pipeline.extract_features([{**rows[0], "augmentationType": "noise"}], ["cqcc"], device="cpu")
-    # no augmentation ("" or None, the JAX package's AUG_NONE codes) is fine
-    out = pipeline.extract_features([{**rows[0], "augmentationType": ""}], ["cqcc"], device="cpu")
-    assert out[0]["cqcc"].shape == (19, 63)
+    with pytest.raises(KeyError):
+        pipeline.extract_features(rows, ["spectral_flux"], device="cpu")
+    with pytest.raises(KeyError):
+        jpipe.extract_features(pd.DataFrame(rows), ["spectral_flux"])
+    with pytest.raises(ValueError, match="mfcc_deltas"):
+        pipeline.extract_features(rows, ["mfcc_deltas"], mean=True, device="cpu")
+    assert set(pipeline.default_extractors()) == set(jpipe.default_extractors())
+    # no augmentation ("" or None, the JAX package's AUG_NONE codes) and "noise" both run
+    for aug in ("", "noise"):
+        out = pipeline.extract_features([{**rows[0], "augmentationType": aug}], ["cqcc"], device="cpu")
+        assert out[0]["cqcc"].shape == (19, 63)

@@ -6,6 +6,8 @@ fixed ``ref=1.0``. The JAX side runs as the JAX tests run it (CPU, matmul
 precision "highest" from conftest.py).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ from audioanalysisdetector_tpu.frontend.stft import frame_signal as j_frame_sign
 from audioanalysisdetector_tpu.frontend.stft import power_spectrogram as j_power_spectrogram
 from audioanalysisdetector_tpu_torch.frontend import db as tdb
 from audioanalysisdetector_tpu_torch.frontend import mel as tmel
-from audioanalysisdetector_tpu_torch.frontend import stft as tstft
+
+# the package's ``stft`` is the function (as in the JAX package): bind the module
+tstft = importlib.import_module("audioanalysisdetector_tpu_torch.frontend.stft")
 
 torch.set_num_threads(2)
 
