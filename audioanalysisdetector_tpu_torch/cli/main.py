@@ -3,15 +3,17 @@
   score          log-mel + CNN-BiLSTM spoof scoring over a directory of WAV/FLAC files
   extract        feature extraction (mfcc/lfcc/cqcc/gtcc/wpt/mel_spectrogram/mfcc_deltas) to .npz
   augment        augmentation on the device: writes noise, pitch and shift WAVs
-  serve          HTTP scoring service: dynamic micro-batching in front of one card
-  train          CNN-BiLSTM training run on log-mel features (one device)
+  serve          HTTP scoring service: dynamic micro-batching in front of the card
+                 (one process, or --workers N HTTP processes and one card owner)
+  train          CNN-BiLSTM training run on log-mel features
   train-fused    GMM(+)BiLSTM flagship system: CQCC -> BiLSTM + GMM-UBM -> fused EER
   train-asvspoof metadata-driven flagship recipe on an ASVspoof-layout corpus
 
 The flags are those of the JAX package's commands, plus ``--device``.
-Multi-device data parallelism (``serve --data-parallel on``) and
-multi-process serving (``--workers`` > 1) are not ported yet and are
-refused. Run as ``python -m audioanalysisdetector_tpu_torch score ...``.
+``serve --data-parallel`` splits each dispatch over the local cards;
+``train`` joins a launcher's process group when one is set (``torchrun``),
+and then trains data-parallel with sync-BN as the JAX package does over
+its local devices. Run as ``python -m audioanalysisdetector_tpu_torch score ...``.
 """
 
 from __future__ import annotations
@@ -77,14 +79,24 @@ def cmd_train(args) -> int:
     (the mel kernel on the card, under ``torch.no_grad()``), the seeded
     80/20 split, ``CNNBiLSTMHybrid(logits=True)`` from the flax-like init,
     ``fit`` with BCE, ``evaluate`` on the best state, one JSON line of
-    metrics on stdout, the run's kernel launch counts on stderr."""
+    metrics on stdout, the run's kernel launch counts on stderr.
+
+    Under a launcher's process group (``initialize_distributed`` reads
+    ``torchrun``'s environment; without one this is one process), the
+    model is built with sync-BN when ``would_use_dp`` says ``fit`` shards
+    the batch, which then opts in with ``data_parallel=True``: the sharded
+    step is numerically the global-batch step."""
     import torch
 
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
     from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
     from audioanalysisdetector_tpu_torch.models.layers import flax_init_
     from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed
     from audioanalysisdetector_tpu_torch.train import TrainState, evaluate, fit, make_optimizer
+    from audioanalysisdetector_tpu_torch.train.loop import would_use_dp
+
+    initialize_distributed(device=args.device)
 
     paths = _collect_wavs(args.audio)
     if len(paths) < 4:
@@ -98,13 +110,15 @@ def cmd_train(args) -> int:
     with torch.no_grad():
         feats = log_mel_spectrogram(torch.from_numpy(wav).to(args.device), mel_cfg)
     split = max(int(len(paths) * 0.8), 1)
-    model = CNNBiLSTMHybrid(feats.shape[-1], logits=True)
+    use_dp = would_use_dp(args.batch_size)  # the decision fit() will make
+    model = CNNBiLSTMHybrid(feats.shape[-1], logits=True, bn_axis_name="data" if use_dp else None)
     flax_init_(model, torch.Generator().manual_seed(args.seed))
     state = TrainState.create(model=model.to(args.device), tx=make_optimizer(args.optimizer, args.lr))
     result = fit(
         state, (feats[:split], y[:split]), (feats[split:], y[split:]),
         loss_name="BCELoss", num_epochs=args.epochs, batch_size=args.batch_size,
         seed=args.seed, run_dir=args.run_dir, binary_head=True, verbose=True,
+        data_parallel=True if use_dp else None,
     )
     metrics = evaluate(
         result.best_state, (feats[split:], y[split:]), loss_name="BCELoss", binary_head=True
@@ -422,9 +436,80 @@ def cmd_augment(args) -> int:
     return 0
 
 
+_DATA_PARALLEL = {"auto": None, "on": True, "off": False}
+
+
+def _serve_multiprocess(args) -> int:
+    """--workers N > 1: SO_REUSEPORT scale-out (serve/multiproc.py). One
+    spawned process owns the card and the batcher; N HTTP workers share
+    the port and forward rows to it, so the host's parse and decode scale
+    with cores while batching still aggregates globally. Serves until
+    SIGINT or SIGTERM, then stops every process it started."""
+    import signal
+    import time
+
+    from audioanalysisdetector_tpu_torch.serve.multiproc import MultiprocessServer
+    from audioanalysisdetector_tpu_torch.serve.server import default_bucket_ladder
+
+    if args.buckets:
+        buckets = tuple(int(b) for b in args.buckets.split(","))
+    else:
+        buckets = default_bucket_ladder(args.max_batch)
+    srv = MultiprocessServer(
+        workers=args.workers,
+        sr=args.sr,
+        host=args.host,
+        port=args.port,
+        factory_kwargs=dict(
+            checkpoint=args.checkpoint,
+            sr=args.sr,
+            seconds=args.seconds,
+            n_mels=args.n_mels,
+            mel_profile=args.mel_profile,
+            data_parallel=_DATA_PARALLEL[args.data_parallel],
+            device=args.device,
+        ),
+        batcher_kwargs=dict(
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            bucket_sizes=buckets,
+            adaptive=not args.no_adaptive,
+        ),
+        force_cpu=args.device == "cpu",
+    )
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _stop)
+    try:
+        srv.start()
+        print(
+            json.dumps(
+                {
+                    "listening": f"http://{args.host}:{srv.port}",
+                    "endpoints": ["/v1/score", "/v1/score_raw", "/v1/stats", "/healthz"],
+                    "workers": args.workers,
+                    "max_batch": args.max_batch,
+                    "buckets": list(buckets),
+                    "device": args.device,
+                }
+            ),
+            flush=True,
+        )
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+    return 0
+
+
 def cmd_serve(args) -> int:
     """HTTP scoring service (serve/server.py): build the scorer, warm up
-    every bucket, bind, serve until SIGINT."""
+    every bucket, bind, serve until SIGINT. ``--workers`` > 1 runs the
+    multi-process server (``_serve_multiprocess``)."""
     from audioanalysisdetector_tpu_torch.serve.server import (
         BatchingScorer,
         ScoreServer,
@@ -441,21 +526,21 @@ def cmd_serve(args) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.workers > 1 or args.data_parallel == "on":
-        print(
-            "serve: --workers > 1 and --data-parallel on are not ported to "
-            "audioanalysisdetector_tpu_torch yet (one device, one process)",
-            file=sys.stderr,
+    if args.workers > 1:
+        return _serve_multiprocess(args)
+    try:
+        scorer, n_samples = build_mel_scorer(
+            checkpoint=args.checkpoint,
+            sr=args.sr,
+            seconds=args.seconds,
+            n_mels=args.n_mels,
+            mel_profile=args.mel_profile,
+            data_parallel=_DATA_PARALLEL[args.data_parallel],
+            device=args.device,
         )
+    except ValueError as e:
+        print(f"serve: {e}", file=sys.stderr)
         return 2
-    scorer, n_samples = build_mel_scorer(
-        checkpoint=args.checkpoint,
-        sr=args.sr,
-        seconds=args.seconds,
-        n_mels=args.n_mels,
-        mel_profile=args.mel_profile,
-        device=args.device,
-    )
     if args.buckets:
         buckets = tuple(int(b) for b in args.buckets.split(","))
     else:
@@ -480,6 +565,7 @@ def cmd_serve(args) -> int:
                 "n_samples": n_samples,
                 "adaptive": batcher.adaptive,
                 "device": args.device,
+                "data_parallel_devices": scorer.row_multiple,
             }
         ),
         flush=True,
@@ -662,8 +748,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.add_argument(
         "--data-parallel", choices=("auto", "on", "off"), default="auto",
-        help="accepted for compatibility; the port serves from one device "
-        "(auto/off), 'on' is refused",
+        help="split each dispatch's rows over the local cards, one model "
+        "replica each (auto: when more than one card is visible)",
     )
     sp.add_argument(
         "--max-wait-ms", type=float, default=5.0,
@@ -687,7 +773,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.add_argument(
         "--workers", type=int, default=1,
-        help="accepted for compatibility; only 1 (single process) is ported",
+        help="HTTP worker processes sharing the port (SO_REUSEPORT) in "
+        "front of one card-owner process (1: single process)",
     )
     sp.set_defaults(fn=cmd_serve)
     return p

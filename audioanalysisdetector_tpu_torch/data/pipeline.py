@@ -15,8 +15,8 @@ returns the stacked array.
 
 ``default_extractors`` registers every frontend of the JAX package's
 registry; ``"formants"`` is routed to the host path
-(``_extract_formants_cells``). The JAX package's multi-device batch
-sharding waits for ROADMAP Queue 1 step 9.
+(``_extract_formants_cells``). With more than one card, full batches
+split their rows over the cards (``_batch_sharding``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spec
 from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig, mfcc, mfcc_deltas_cmvn
 from audioanalysisdetector_tpu_torch.frontend.wpt import wpt_energies
 from audioanalysisdetector_tpu_torch.io.native_loader import load_chunk_batch_native as load_chunk_batch
+from audioanalysisdetector_tpu_torch.parallel.mesh import split_rows_over
 
 
 def default_extractors(sr: int = 16000) -> dict[str, Callable]:
@@ -121,6 +122,20 @@ def _aug_codes_from(rows: list[dict], aug_col: str) -> np.ndarray:
     )
 
 
+def _batch_sharding(batch_size: int, device: str | torch.device = "cuda") -> list[torch.device] | None:
+    """The cards a batch's rows split over, when it divides evenly.
+
+    The JAX package shards the batch axis over the local devices of its
+    one-process mesh; featurization is per-row, so here one process hands
+    each card its share of the rows: no collectives. None on one device
+    (or the CPU), as in the JAX package."""
+    device = torch.device(device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_dev <= 1 or batch_size % n_dev != 0 or batch_size < n_dev:
+        return None
+    return [torch.device("cuda", i) for i in range(n_dev)]
+
+
 @torch.no_grad()
 def extract_feature_array(
     rows: list[dict],
@@ -142,8 +157,12 @@ def extract_feature_array(
     ``apply_augmentations`` before ``feature_fn``, drawing from one
     generator seeded from ``seed``. ``mean`` pools the time axis
     (``time_axis`` of the feature's layout); a feature with no time axis
-    (wpt's (B, 8) band energies) passes through unchanged."""
+    (wpt's (B, 8) band energies) passes through unchanged.
+
+    With more than one card (``_batch_sharding``), the augmentations run on
+    ``device`` and the feature on every card's share of the rows."""
     paths, starts, ends = _spans(rows, path_col)
+    sharding = _batch_sharding(batch_size, device)
     codes = _aug_codes_from(rows, aug_col)
     generator = torch.Generator(device=device).manual_seed(seed)
     outs, oks = [], []
@@ -159,7 +178,8 @@ def extract_feature_array(
         if aug.any():
             # only batches that hold augmented rows pay for the augmentations
             wav_dev = apply_augmentations(wav_dev, torch.from_numpy(aug).to(device), generator)
-        feats = feature_fn(wav_dev)
+        feats = (feature_fn(wav_dev) if sharding is None
+                 else split_rows_over(sharding, [feature_fn] * len(sharding), wav_dev))
         if mean and feats.ndim > 2:
             feats = torch.mean(feats, dim=time_axis)
         outs.append(feats.cpu().numpy()[:true])

@@ -1,7 +1,7 @@
 """Host-side IO (L0): audio decode/probe, config, native loader bindings.
 
 Copies of the JAX package's backend-free ``io`` modules (importing that
-package would import jax). ``io/config.py`` imports ``yaml`` only inside
+package would load jax). ``io/config.py`` imports ``yaml`` only inside
 its loaders.
 """
 

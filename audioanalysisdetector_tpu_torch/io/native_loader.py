@@ -36,7 +36,7 @@ _PKG_ROOT = Path(__file__).resolve().parents[1]
 def _find_native_dir() -> Path | None:
     """The C++ sources: ``<repo>/native`` in a source tree, or the JAX
     package's ``native`` subpackage directory in an installed wheel (found
-    by path: importing it would import jax)."""
+    by path: importing it would load jax)."""
     for cand in (_PKG_ROOT.parent / "native", _PKG_ROOT.parent / "audioanalysisdetector_tpu" / "native"):
         if all((cand / s).exists() for s in _SRC_NAMES):
             return cand

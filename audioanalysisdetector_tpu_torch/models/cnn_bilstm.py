@@ -19,7 +19,8 @@ same two reference quirks kept as numeric contract:
 
 BatchNorm: flax ``momentum=0.9`` is torch ``momentum=0.1``, ``eps=1e-5``; in
 training mode its running variance takes the biased batch variance, as
-flax's does (``models.layers.FlaxBatchNorm1d``). Dropout draws its masks
+flax's does (``models.layers.FlaxBatchNorm1d``); ``bn_axis_name`` makes it
+flax's sync-BN over the ranks bound to that mesh axis. Dropout draws its masks
 from the ``generator`` handed to ``forward`` (``models.layers.Dropout``).
 """
 
@@ -51,12 +52,13 @@ class CNNBiLSTMHybrid(nn.Module):
         conv_dropout: float = 0.3,
         fixed_attention: bool = False,
         logits: bool = False,  # True: return pre-sigmoid logits (stable BCE)
+        bn_axis_name: str | None = None,  # the mesh axis for sync-BN under data parallelism
     ):
         super().__init__()
         self.fixed_attention = fixed_attention
         self.logits = logits
         self.conv = nn.Conv1d(in_channels, 64, kernel_size=3, padding=1)
-        self.bn = FlaxBatchNorm1d(64, eps=1e-5, momentum=0.1)
+        self.bn = FlaxBatchNorm1d(64, eps=1e-5, momentum=0.1, axis_name=bn_axis_name)
         self.pool = nn.MaxPool1d(2, 2)
         self.conv_dropout = Dropout(conv_dropout)
         self.bilstm = BiLSTM(64, lstm_units)

@@ -11,6 +11,14 @@ expansion ``(x - mu)^2 / var = x^2 (1/var) - 2 x (mu/var) + mu^2/var``
 (N, K, D) tensor is ever formed. The JAX package computes all of it with
 XLA (no Pallas kernel), so the port runs plain PyTorch: cuBLAS SGEMM and
 elementwise passes on the card.
+
+Frame-sharded fits: the JAX package passes a frame-sharded array and XLA
+reduces the E-step statistics across devices. Here ``fit_em``,
+``map_adapt`` and ``map_adapt_chunked`` take a ``group`` (a
+``torch.distributed`` process group) and ``x`` is this rank's contiguous
+shard of the frames, in rank order: the per-component counts, first and
+second moments and the log-likelihood are summed over the group inside
+each step (one all-reduce), so every rank holds the same model.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _LOG2PI = float(np.log(2.0 * np.pi))
 
@@ -113,6 +122,38 @@ def _pad_on_device(x: torch.Tensor, w: torch.Tensor, chunk: int) -> tuple[torch.
     return xc, torch.nn.functional.pad(w, (0, pad)).reshape(n_chunks, chunk)
 
 
+def _sum_over(group, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The tensors summed over the ranks of ``group`` (one all-reduce);
+    unchanged without a group."""
+    if group is None:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, offset = [], 0
+    for t in tensors:
+        out.append(flat[offset : offset + t.numel()].view_as(t))
+        offset += t.numel()
+    return tuple(out)
+
+
+def _gather_rows(x, group, device):
+    """Every rank's rows, in rank order, on every rank: an exact all-reduce
+    of each rank's rows placed in a zero buffer (backends that all-reduce
+    CUDA tensors need no gather of them). A numpy ``x`` comes back numpy."""
+    on_host = not isinstance(x, torch.Tensor)
+    t = torch.from_numpy(x).to(device) if on_host else x
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    counts = torch.zeros(n, dtype=torch.int64, device=t.device)
+    counts[r] = t.shape[0]
+    dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+    counts = counts.tolist()
+    out = torch.zeros((sum(counts), *t.shape[1:]), dtype=t.dtype, device=t.device)
+    lo = sum(counts[:r])
+    out[lo : lo + t.shape[0]] = t
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.cpu().numpy() if on_host else out
+
+
 def _m_step(nk, fk, sk, n_total, reg_covar: float) -> DiagGMM:
     nk_safe = nk + 10.0 * torch.finfo(fk.dtype).eps
     means = fk / nk_safe[:, None]
@@ -120,24 +161,25 @@ def _m_step(nk, fk, sk, n_total, reg_covar: float) -> DiagGMM:
     return DiagGMM(weights=nk / n_total, means=means, variances=variances)
 
 
-def _em_step_flat(x: torch.Tensor, gmm: DiagGMM, reg_covar: float = 1e-6):
+def _em_step_flat(x: torch.Tensor, gmm: DiagGMM, reg_covar: float = 1e-6, group=None, n_total: int | None = None):
     """One EM iteration with the (N, K) responsibilities materialized (920
     MB for the reference's 1.8M-frame, 128-component UBM); ``fit_em`` takes
-    it whenever that fits ``flat_bytes``. Returns (model, mean LL)."""
+    it whenever that fits ``flat_bytes``. With ``group``, ``x`` is this
+    rank's shard and ``n_total`` the frames of all of them. Returns (model,
+    mean LL)."""
     lr = log_weighted(x, gmm)
     ln = torch.logsumexp(lr, dim=-1, keepdim=True)
     resp = torch.exp(lr - ln)
-    nk = torch.sum(resp, dim=0)
-    fk = resp.T @ x
-    sk = resp.T @ (x * x)
-    n_total = x.shape[0]
-    return _m_step(nk, fk, sk, n_total, reg_covar), torch.sum(ln) / n_total
+    nk, fk, sk, ll = _sum_over(group, torch.sum(resp, dim=0), resp.T @ x, resp.T @ (x * x), torch.sum(ln))
+    n_total = x.shape[0] if n_total is None else n_total
+    return _m_step(nk, fk, sk, n_total, reg_covar), ll / n_total
 
 
-def _em_step(xc: torch.Tensor, wc: torch.Tensor, gmm: DiagGMM, reg_covar: float = 1e-6):
+def _em_step(xc: torch.Tensor, wc: torch.Tensor, gmm: DiagGMM, reg_covar: float = 1e-6, group=None):
     """One EM iteration over (n_chunks, chunk, D) frames: the statistics
     accumulate chunk by chunk (the JAX package's ``lax.scan``), so only
-    (chunk, K) is ever materialized."""
+    (chunk, K) is ever materialized; with ``group`` they are then summed
+    over its ranks."""
     k, d = gmm.means.shape
     nk = torch.zeros(k, dtype=xc.dtype, device=xc.device)
     fk = torch.zeros((k, d), dtype=xc.dtype, device=xc.device)
@@ -146,7 +188,7 @@ def _em_step(xc: torch.Tensor, wc: torch.Tensor, gmm: DiagGMM, reg_covar: float 
     for x_c, w_c in zip(xc, wc):
         dnk, dfk, dsk, dll = _estep_stats(x_c, w_c, gmm)
         nk, fk, sk, ll = nk + dnk, fk + dfk, sk + dsk, ll + dll
-    n_total = torch.sum(wc)
+    nk, fk, sk, ll, n_total = _sum_over(group, nk, fk, sk, ll, torch.sum(wc))
     return _m_step(nk, fk, sk, n_total, reg_covar), ll / n_total
 
 
@@ -207,6 +249,7 @@ def fit_em(
     flat_bytes: int = 2 << 30,
     verbose: bool = False,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> DiagGMM:
     """Fit a diagonal GMM by EM (sklearn-equivalent semantics).
 
@@ -230,16 +273,27 @@ def fit_em(
     device and are fetched once a window, and the model returned is the one
     AFTER the first iteration whose |ΔLL| < tol. ``verbose`` fetches and
     prints every iteration's LL instead, with the same stop.
+
+    ``group``: ``x`` is this rank's shard of the frames (the module
+    docstring). The frames are gathered once, for the data variance and
+    the k-means seeding, so a sharded fit starts where the single one
+    does; the flat-or-chunked rule counts every rank's frames; the mean LL
+    is the group's, so every rank stops at the same iteration.
     """
     on_device = isinstance(x, torch.Tensor)
     if on_device:
         x = x.to(torch.float32)
-        var_host = torch.var(x, dim=0, correction=0).cpu().numpy()
         device = x.device
     else:
         x = np.asarray(x, dtype=np.float32)
-        var_host = x.var(axis=0)
-    centers = _kmeans_init(x, n_components, seed, device=device)
+    x_all = x if group is None else _gather_rows(x, group, device)
+    n_frames = x_all.shape[0]
+    if on_device:
+        var_host = torch.var(x_all, dim=0, correction=0).cpu().numpy()
+    else:
+        var_host = x_all.var(axis=0)
+    centers = _kmeans_init(x_all, n_components, seed, device=device)
+    del x_all
     var0 = np.full((n_components, x.shape[1]), var_host + reg_covar, dtype=np.float32)
     gmm = DiagGMM(
         weights=torch.full((n_components,), 1.0 / n_components, dtype=torch.float32, device=device),
@@ -251,16 +305,16 @@ def fit_em(
         if var_floor_rel > 0
         else None
     )
-    if x.shape[0] * n_components * 4 <= flat_bytes:
+    if n_frames * n_components * 4 <= flat_bytes:
         xd = x if on_device else torch.from_numpy(x).to(device)
-        step = lambda g: _em_step_flat(xd, g, reg_covar=reg_covar)  # noqa: E731
+        step = lambda g: _em_step_flat(xd, g, reg_covar=reg_covar, group=group, n_total=n_frames)  # noqa: E731
     else:
         if on_device:
             xc, wc = _pad_on_device(x, torch.ones(x.shape[0], dtype=x.dtype, device=device), chunk)
         else:
             xc_np, wc_np = _pad_to_chunks(x, chunk)
             xc, wc = torch.from_numpy(xc_np).to(device), torch.from_numpy(wc_np).to(device)
-        step = lambda g: _em_step(xc, wc, g, reg_covar=reg_covar)  # noqa: E731
+        step = lambda g: _em_step(xc, wc, g, reg_covar=reg_covar, group=group)  # noqa: E731
     if floor is not None:
         base_step = step
 
@@ -309,6 +363,7 @@ def map_adapt(
     frame_weights: torch.Tensor | None = None,
     adapt_vars: bool = True,
     adapt_weights: bool = True,
+    group=None,
 ) -> DiagGMM:
     """MAP adaptation with the reference's update equations
     (reference/ASV_dl_func.py:1172-1197). Every reference iteration
@@ -319,13 +374,16 @@ def map_adapt(
     adapts to a subset of a shared frame buffer without a second upload.
     ``adapt_vars`` / ``adapt_weights`` default to the reference's full
     update; ``train_gmm_system`` defaults to means only (Reynolds et al.
-    2000), which the JAX package measured to keep the LLR stable."""
+    2000), which the JAX package measured to keep the LLR stable.
+    ``group``: ``x`` (and ``frame_weights``) are this rank's shard of the
+    frames; the statistics are summed over its ranks."""
     resp = predict_proba(x, ubm)  # (N, K)
     if frame_weights is not None:
         resp = resp * frame_weights[:, None]
-    nk = torch.sum(resp, dim=0)
-    fk = resp.T @ x
-    sk = resp.T @ (x * x) if adapt_vars else None
+    if adapt_vars:
+        nk, fk, sk = _sum_over(group, torch.sum(resp, dim=0), resp.T @ x, resp.T @ (x * x))
+    else:
+        (nk, fk), sk = _sum_over(group, torch.sum(resp, dim=0), resp.T @ x), None
     return _map_from_stats(
         ubm, nk, fk, sk, relevance_factor=relevance_factor,
         var_floor=var_floor, adapt_vars=adapt_vars, adapt_weights=adapt_weights,
@@ -373,11 +431,12 @@ def map_adapt_chunked(
     frame_weights: torch.Tensor | None = None,
     adapt_vars: bool = True,
     adapt_weights: bool = True,
+    group=None,
 ) -> DiagGMM:
     """``map_adapt`` for frame buffers whose (N, K) responsibility matrix
     would not fit: the statistics accumulate over fixed-size chunks (EM's
     chunked accumulator), so only (chunk, K) is materialized. Equal to the
-    flat path up to summation order."""
+    flat path up to summation order. ``group`` as in ``map_adapt``."""
     w = frame_weights.to(x.dtype) if frame_weights is not None else torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     xc, wc = _pad_on_device(x, w, chunk)
     k, d = ubm.means.shape
@@ -387,6 +446,7 @@ def map_adapt_chunked(
     for x_c, w_c in zip(xc, wc):
         cnk, cfk, csk, _ll = _estep_stats(x_c, w_c, ubm)
         nk, fk, sk = nk + cnk, fk + cfk, sk + csk
+    nk, fk, sk = _sum_over(group, nk, fk, sk)
     return _map_from_stats(
         ubm, nk, fk, sk if adapt_vars else None, relevance_factor=relevance_factor,
         var_floor=var_floor, adapt_vars=adapt_vars, adapt_weights=adapt_weights,

@@ -6,7 +6,8 @@
   masks cannot match JAX's draws; parity runs use rate 0.
 - ``FlaxBatchNorm1d``: ``nn.BatchNorm1d`` (same parameters, buffers and
   state-dict keys) whose training-mode running variance follows flax: the
-  BIASED batch variance, where torch's own update takes the unbiased one.
+  BIASED batch variance, where torch's own update takes the unbiased one;
+  with ``axis_name``, flax's sync-BN over a process group.
 - ``flax_init_``: parameters drawn from a generator with the distribution of
   the JAX package's ``model.init``: ``lecun_normal`` (a normal truncated at
   two standard deviations, fan-in scaled) kernels and zero biases for Conv
@@ -48,20 +49,51 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     """``(B, C, L)`` BatchNorm: flax ``momentum=0.9`` is ``momentum=0.1`` here;
     in training mode the running mean and variance move by ``momentum``
     toward the batch mean and the biased batch variance over ``(B, L)``,
-    computed as flax computes it."""
+    computed as flax computes it.
+
+    ``axis_name`` is flax's sync-BN: in training mode the batch mean and
+    mean of squares are averaged over the ranks of the process group bound
+    to that name (``parallel.mesh.axis_groups``, which the data-parallel
+    step binds), the variance taken as E[x^2] - mean^2, and the rows
+    normalized by those global moments, so every rank normalizes as one
+    device would over the global batch and holds the same running
+    statistics. Not ``nn.SyncBatchNorm``, whose Welford combine rounds
+    otherwise."""
+
+    def __init__(self, *args, axis_name: str | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.axis_name = axis_name
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.axis_name is not None:
+            return self._synced(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             # flax's (fast) biased variance, E[x^2] - E[x]^2 clipped at 0
             mean = x.mean(dim=(0, 2))
             var = (x * x).mean(dim=(0, 2)).sub_(mean * mean).clamp_(min=0.0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return out
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        from audioanalysisdetector_tpu_torch.parallel.mesh import all_reduce_sum, axis_group
+
+        group = axis_group(self.axis_name)
+        moments = torch.stack([x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))])
+        mean, mean2 = all_reduce_sum(moments, group) / torch.distributed.get_world_size(group)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        with torch.no_grad():
+            self._update_running(mean, var)
+        return out
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:

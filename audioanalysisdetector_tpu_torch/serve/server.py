@@ -5,10 +5,11 @@ classes (``BatchingScorer``, ``ScoreServer``, ``ServeStats``, the bucket
 ladder and the adaptive window) are that module's, unchanged in behaviour;
 see its docstring for the design. What differs:
 
-- ``build_mel_scorer`` builds the port's scorer on ONE device (the mel
-  kernel that ``frontend.mel.mel_route`` names + CNN-BiLSTM on CUDA);
-  multi-device data parallelism and the multi-process front end
-  (``serve/multiproc.py``) are not ported yet.
+- ``build_mel_scorer`` builds the port's scorer (the mel kernel that
+  ``frontend.mel.mel_route`` names + CNN-BiLSTM on CUDA); with
+  ``data_parallel`` it splits each dispatch's rows over the local cards,
+  one model replica each (the JAX package shards them over a one-process
+  mesh). The multi-process front end is ``serve/multiproc.py``.
 - ``/healthz`` reports the scorer's device type (``"cuda"`` or ``"cpu"``).
 - The ``audio_b64`` lane decodes through the port's copy of ``io/``.
 """
@@ -434,6 +435,13 @@ def _fit_rows(y: np.ndarray, n_samples: int) -> np.ndarray:
     return out
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver's listen backlog is 5: a burst of more clients than that
+    # connecting at once loses SYNs, and each lost one costs its client a
+    # 1-s retransmit. The owner's unix socket (serve/multiproc.py) holds 128.
+    request_queue_size = 128
+
+
 class ScoreServer:
     """Threaded HTTP front end over a :class:`BatchingScorer`.
 
@@ -468,6 +476,7 @@ class ScoreServer:
         host: str = "127.0.0.1",
         port: int = 0,
         request_timeout: float = 60.0,
+        reuse_port: bool = False,
     ):
         self.batcher = batcher
         self.sr = int(sr)
@@ -538,7 +547,20 @@ class ScoreServer:
                         },
                     )
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        if reuse_port:
+            # multi-process mode (serve/multiproc.py): every worker binds
+            # the same concrete port; the kernel load-balances connections
+            # across the reuseport group
+            import socket as _socket
+
+            class _ReusePortServer(_HTTPServer):
+                def server_bind(self):
+                    self.socket.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEPORT, 1)
+                    _HTTPServer.server_bind(self)
+
+            self._httpd = _ReusePortServer((host, port), Handler)
+        else:
+            self._httpd = _HTTPServer((host, port), Handler)
         self._thread: threading.Thread | None = None
 
     # ---- request assembly ----
@@ -624,35 +646,53 @@ def build_mel_scorer(
     seconds: float = 2.0,
     n_mels: int = 64,
     mel_profile: str = "parity",
+    data_parallel: bool | None = None,
     device: str | torch.device = "cuda",
     seed: int = 0,
 ) -> tuple[Callable[[np.ndarray], np.ndarray], int]:
-    """(scorer, n_samples) for the flagship mel -> CNN-BiLSTM service on one
+    """(scorer, n_samples) for the flagship mel -> CNN-BiLSTM service on
     ``device``: numpy ``(B, n_samples)`` float32 in, numpy ``(B,)`` out.
 
     Model init + checkpoint loading go through
     ``score.e2e.init_mel_cnn_bilstm``, the one checkpoint contract. The
-    scorer carries ``row_multiple`` (1: one device) for the batcher's bucket
-    ladder and ``platform`` (the device type) for ``/healthz``.
+    scorer carries ``row_multiple`` for the batcher's bucket ladder and
+    ``platform`` (the device type) for ``/healthz``.
+
+    ``data_parallel`` (None = auto when ``device`` is CUDA and more than one
+    card is visible): one replica of the model per card, each dispatch's
+    rows split evenly over them (scoring is per row: no collectives), the
+    scores gathered in row order. ``row_multiple`` is then the card count,
+    and a dispatch whose rows do not divide raises. ``True`` on one device
+    raises, as in the JAX package.
     """
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+    from audioanalysisdetector_tpu_torch.parallel.mesh import split_rows_over
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
         make_mel_cnn_bilstm_scorer,
     )
 
     device = torch.device(device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    if data_parallel is True and n_dev <= 1:
+        # an explicit request for sharding on a single device is an
+        # operator error, not a silent no-op
+        raise ValueError("data_parallel=True but only one local device")
+    use_dp = n_dev > 1 if data_parallel is None else data_parallel
+    devices = [torch.device("cuda", i) for i in range(n_dev)] if use_dp else [device]
     mel_cfg = MelConfig.for_profile(mel_profile, sr, n_mels=n_mels)
     n_samples = int(seconds * sr)
-    model = init_mel_cnn_bilstm(
-        mel_cfg, n_samples, checkpoint=checkpoint, seed=seed, device=device
-    )
-    score = make_mel_cnn_bilstm_scorer(model, mel_cfg)
+    scores = [
+        make_mel_cnn_bilstm_scorer(
+            init_mel_cnn_bilstm(mel_cfg, n_samples, checkpoint=checkpoint, seed=seed, device=d), mel_cfg
+        )
+        for d in devices
+    ]
 
     def scorer(wav: np.ndarray) -> np.ndarray:
         batch = torch.from_numpy(np.ascontiguousarray(wav, dtype=np.float32))
-        return score(batch.to(device)).cpu().numpy()
+        return split_rows_over(devices, scores, batch).numpy()
 
-    scorer.row_multiple = 1
+    scorer.row_multiple = len(devices)
     scorer.platform = device.type
     return scorer, n_samples

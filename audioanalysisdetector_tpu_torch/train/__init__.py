@@ -1,7 +1,8 @@
 """Training subsystem (PyTorch port): losses, optimizers, state, steps,
 loops, checkpoints in the JAX package's format, metrics, the GMM-UBM
 system (training, loading, evaluation) and the surrogate quality lane
-(``train.quality``). Data-parallel steps are ROADMAP Queue 1 step 9."""
+(``train.quality``), and the data-parallel step over the ranks of a
+process group."""
 
 from audioanalysisdetector_tpu_torch.train.checkpoint import (
     MsgpackFormatError,
@@ -29,6 +30,7 @@ from audioanalysisdetector_tpu_torch.train.loop import (
     evaluate,
     fit,
     fit_bucketed,
+    would_use_dp,
 )
 from audioanalysisdetector_tpu_torch.train.losses import LOSSES, get_loss
 from audioanalysisdetector_tpu_torch.train.metrics import (
@@ -43,7 +45,13 @@ from audioanalysisdetector_tpu_torch.train.metrics import (
 )
 from audioanalysisdetector_tpu_torch.train.optimizers import OPTIMIZERS, make_optimizer
 from audioanalysisdetector_tpu_torch.train.state import TrainState, param_count
-from audioanalysisdetector_tpu_torch.train.steps import make_eval_step, make_train_step
+from audioanalysisdetector_tpu_torch.train.steps import (
+    make_dp_train_step,
+    make_eval_step,
+    make_train_step,
+    replicate,
+    shard_batch,
+)
 
 __all__ = [
     "EpochLog",
@@ -70,17 +78,21 @@ __all__ = [
     "load_gmm_feature_fn",
     "load_gmm_models",
     "load_payload",
+    "make_dp_train_step",
     "make_eval_step",
     "make_gmm_feature_fn",
     "make_optimizer",
     "make_train_step",
     "model_result_metrics",
     "param_count",
+    "replicate",
     "restore_checkpoint",
     "restore_params",
     "roc_curve_np",
     "save_checkpoint",
     "save_params",
     "sequence_cmvn",
+    "shard_batch",
     "train_gmm_system",
+    "would_use_dp",
 ]

@@ -10,9 +10,13 @@ Reading and writing go through the port's own msgpack codec
 (``train/_msgpack.py``): neither ``msgpack`` nor ``flax`` is needed.
 
 The models: ``CNNBiLSTMHybrid`` (with its BatchNorm statistics) and
-``BiLSTMClassifier`` (an empty ``batch_stats``). Orbax checkpoints have no
-counterpart here (``torch.distributed.checkpoint`` is ROADMAP Queue 1
-step 9).
+``BiLSTMClassifier`` (an empty ``batch_stats``).
+
+``save_checkpoint_orbax`` / ``restore_checkpoint_orbax`` keep the JAX
+package's names for its sharding-aware backend, but write
+``torch.distributed.checkpoint`` (DCP) directories, not orbax's: each rank
+of a process group calls them and DCP writes replicated tensors once. Only
+the port reads them; ``.msgpack`` stays the one format both packages read.
 """
 
 from __future__ import annotations
@@ -38,8 +42,10 @@ __all__ = [
     "MsgpackFormatError",
     "load_payload",
     "restore_checkpoint",
+    "restore_checkpoint_orbax",
     "restore_params",
     "save_checkpoint",
+    "save_checkpoint_orbax",
     "save_params",
 ]
 
@@ -121,3 +127,47 @@ def restore_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
         params = msgpack_restore(f.read())
     _load_variables(model, {"params": params}, strict=False)
     return model
+
+
+def _dcp_state_dict(state, with_optimizer: bool) -> dict:
+    """``{step, model[, optimizer]}`` in DCP's flat naming."""
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict, get_optimizer_state_dict
+
+    sd = {"step": torch.tensor(state.step, dtype=torch.int64), "model": get_model_state_dict(state.model)}
+    if with_optimizer:
+        sd["optimizer"] = get_optimizer_state_dict(state.model, state.optimizer)
+    return sd
+
+
+def save_checkpoint_orbax(directory: str, state, *, step: int | None = None) -> str:
+    """Persist ``state`` as a DCP checkpoint in ``<directory>/step_<step>``
+    (the JAX package's layout of its orbax steps) and return that path.
+    Every rank of a process group calls it with the same directory. An
+    optimizer that has not stepped yet holds its initial state and is
+    written without one."""
+    import torch.distributed.checkpoint as dcp
+
+    step = int(state.step) if step is None else step
+    path = os.path.join(os.path.abspath(directory), f"step_{step}")
+    dcp.save(_dcp_state_dict(state, bool(state.optimizer.state)), checkpoint_id=path)
+    return path
+
+
+def restore_checkpoint_orbax(path: str, state):
+    """Restore a ``save_checkpoint_orbax`` directory into ``state`` (its
+    model and optimizer are the template) and return it."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.state_dict import set_model_state_dict, set_optimizer_state_dict
+
+    path = os.path.abspath(path)
+    keys = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    with_optimizer = any(k.startswith("optimizer.") for k in keys)
+    sd = _dcp_state_dict(state, with_optimizer)
+    dcp.load(sd, checkpoint_id=path)
+    set_model_state_dict(state.model, sd["model"])
+    if with_optimizer:
+        set_optimizer_state_dict(state.model, state.optimizer, sd["optimizer"])
+    else:
+        state.optimizer.state.clear()
+    state.step = int(sd["step"])
+    return state

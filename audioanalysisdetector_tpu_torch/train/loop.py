@@ -13,7 +13,12 @@ rows and weights the metric averages by true counts; evaluation leaves the
 tail unpadded so val loss, which picks the best checkpoint, is exact.
 Metrics accumulate on the device: one host sync per epoch.
 
-Data-parallel training (``data_parallel=True``) is ROADMAP Queue 1 step 9.
+Data parallelism (``fit(data_parallel=...)``) runs over the ranks of a
+``torch.distributed`` process group, one device each (``parallel/mesh.py``):
+every rank walks the same permutation and steps on its shard of each global
+batch (``batch_iter(across_processes=True)``), the gradients averaged over
+the ranks (``train/steps.py::make_dp_train_step``); rank 0 writes the run
+directory.
 """
 
 from __future__ import annotations
@@ -31,12 +36,19 @@ import torch
 from audioanalysisdetector_tpu_torch.data.bucketing import bucketed_batches, make_bucket_ladder
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
+from audioanalysisdetector_tpu_torch.parallel.mesh import make_mesh, process_count, process_index, process_shard
 from audioanalysisdetector_tpu_torch.train import metrics as M
 from audioanalysisdetector_tpu_torch.train.checkpoint import save_checkpoint
 from audioanalysisdetector_tpu_torch.train.losses import get_loss, get_loss_per_row
 from audioanalysisdetector_tpu_torch.train.optimizers import make_optimizer
 from audioanalysisdetector_tpu_torch.train.state import TrainState
-from audioanalysisdetector_tpu_torch.train.steps import _ieee_fp32, make_eval_step, make_train_step
+from audioanalysisdetector_tpu_torch.train.steps import (
+    _ieee_fp32,
+    make_dp_train_step,
+    make_eval_step,
+    make_train_step,
+    replicate,
+)
 
 Data = np.ndarray | torch.Tensor | tuple
 
@@ -49,12 +61,18 @@ def batch_iter(
     shuffle: bool,
     seed: int = 0,
     pad_tail: bool = True,
+    across_processes: bool = False,
 ) -> Iterator[tuple[Data, np.ndarray | torch.Tensor, int]]:
     """Yield (x_batch, y_batch, true_count); tail batch padded to full size.
 
     ``x`` may be a tuple of arrays (multi-input models); rows stay aligned.
     Tensors are indexed on their own device, with one upload of the
-    epoch's row order."""
+    epoch's row order.
+
+    ``across_processes``: multi-process data loading — every rank walks the
+    SAME global permutation (same seed) but materializes only its
+    ``parallel.mesh.process_shard`` slice of each global batch;
+    ``true_count`` stays global."""
     n = len(y)
     idx = np.arange(n)
     if shuffle:
@@ -68,6 +86,8 @@ def batch_iter(
             # FULL batch_size even when the whole dataset is smaller than one
             # batch
             sel = np.concatenate([sel, np.resize(idx, batch_size - true)])
+        if across_processes:
+            sel = sel[process_shard(len(sel))]
         sels.append((sel, true))
     order = np.concatenate([s for s, _ in sels]) if sels else idx
     on_device: dict = {}
@@ -129,6 +149,56 @@ class FitResult:
     n_compiled_shapes: int = -1
 
 
+def _pick_dp_mesh(batch_size: int, data_parallel: bool | None, has_batch_stats: bool = False):
+    """Resolve the data-parallel decision for ``fit``: a 1-D ``DeviceMesh``
+    over the ranks, or None.
+
+    The JAX package counts the local devices; the port counts the ranks of
+    the initialized process group (``parallel.mesh.initialize_distributed``).
+    A process that joined no group is one device. ``None`` (auto): shard
+    when there is more than one rank, the batch divides evenly AND each
+    shard gets >= 4 rows (sharding 1-2 rows per device costs more in
+    dispatch and collectives than the parallelism buys). ``True``: required;
+    raises on one device or an indivisible batch (a group of one rank, NCCL
+    on one card, runs the data-parallel step and its collectives).
+    ``False``: off.
+
+    Auto mode also requires ``has_batch_stats=False``: a BatchNorm model
+    built WITHOUT ``bn_axis_name`` normalizes each shard by its own batch
+    statistics, which silently changes training numerics against one
+    device; auto must never do that. BN models opt in with
+    ``data_parallel=True`` (per-shard BN forward, averaged running stats)
+    or, for the one-device numerics, a model built with
+    ``bn_axis_name="data"`` (sync-BN; ``cli train`` does this)."""
+    if data_parallel is False:
+        return None
+    if data_parallel is None and has_batch_stats:
+        return None
+    n_dev = process_count()
+    if not torch.distributed.is_initialized():
+        if data_parallel is True:
+            raise ValueError("data_parallel=True but only one local device")
+        return None
+    if data_parallel is None and n_dev <= 1:
+        return None
+    if batch_size % n_dev != 0:
+        if data_parallel is True:
+            raise ValueError(f"batch_size {batch_size} not divisible by {n_dev} devices")
+        return None
+    if data_parallel is None and batch_size < 4 * n_dev:
+        return None
+    return make_mesh(n_dev, axis="data")
+
+
+def would_use_dp(batch_size: int) -> bool:
+    """Would ``fit(..., data_parallel=None)`` auto-shard this batch size over
+    the ranks (for a BN-free model)? Callers that must build a model
+    consistently with ``fit``'s decision (``bn_axis_name`` for a sync-BN
+    model before opting in with ``data_parallel=True``) ask this instead of
+    re-deriving the thresholds."""
+    return _pick_dp_mesh(batch_size, None, has_batch_stats=False) is not None
+
+
 def _save_best_worst(run_dir: str | None, name: str, state: TrainState, epoch: int, val_loss: float) -> None:
     if run_dir:
         save_checkpoint(os.path.join(run_dir, name), state,
@@ -156,18 +226,29 @@ def fit(
     device of ``state.model``. The dropout masks come from one
     ``torch.Generator`` on that device seeded by ``seed``; epoch ``e``
     shuffles with ``seed + e``. ``best_state`` is a copy taken at the best
-    val loss. ``data_parallel``: ``None`` and ``False`` train on one device,
-    ``True`` raises ``NotImplementedError`` (ROADMAP Queue 1 step 9)."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP Queue 1 step 9); "
-            "pass data_parallel=None or False to train on one device"
-        )
+    val loss, never an alias of the live state.
+
+    ``data_parallel`` (``_pick_dp_mesh``): None auto-shards a BN-free model
+    over the ranks of the process group, True requires it, False disables.
+    Under data parallelism the state is broadcast from rank 0, each rank
+    steps on its shard of every global batch with the gradients averaged
+    (numerically the global-batch step up to float reassociation), its
+    dropout generator seeded from (seed, rank); every rank evaluates the
+    whole val set, and rank 0 alone writes ``run_dir``."""
     loss_fn = get_loss(loss_name)
-    step = step_fn or make_train_step(loss_fn, has_batch_stats=has_batch_stats, binary_head=binary_head)
-    eval_step = make_eval_step(loss_fn, has_batch_stats=has_batch_stats, binary_head=binary_head)
+    mesh = _pick_dp_mesh(batch_size, data_parallel, has_batch_stats) if step_fn is None else None
     device = _device(state.model)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    if mesh is not None:
+        step = make_dp_train_step(loss_fn, mesh, has_batch_stats=has_batch_stats, binary_head=binary_head)
+        state = replicate(state, mesh)
+        rank_seed = int(np.random.SeedSequence([seed, process_index()]).generate_state(1)[0])
+        generator = torch.Generator(device=device).manual_seed(rank_seed)
+        if process_index() != 0:
+            run_dir, verbose = None, False
+    else:
+        step = step_fn or make_train_step(loss_fn, has_batch_stats=has_batch_stats, binary_head=binary_head)
+        generator = torch.Generator(device=device).manual_seed(seed)
+    eval_step = make_eval_step(loss_fn, has_batch_stats=has_batch_stats, binary_head=binary_head)
 
     logs: list[EpochLog] = []
     best_val = float("inf")
@@ -179,7 +260,9 @@ def fit(
         t0 = time.time()
         tr_loss_d = tr_acc_d = None
         tr_n = 0.0
-        for xb, yb, true in batch_iter(*train_data, batch_size, shuffle=True, seed=seed + epoch):
+        for xb, yb, true in batch_iter(
+            *train_data, batch_size, shuffle=True, seed=seed + epoch, across_processes=mesh is not None
+        ):
             state, m = step(state, _to(xb, device), _labels(yb, device), generator)
             dl, da = m["loss"] * true, m["accuracy"] * true
             tr_loss_d = dl if tr_loss_d is None else tr_loss_d + dl

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features, multi.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -93,7 +93,22 @@ each print their lines:
     ``train-asvspoof --augment`` on phase 11's corpus (finite EERs, more
     train rows than without). Apart from K3 under the mel features, the
     path ran on XLA in the JAX package: plain PyTorch;
-13. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+13. multi: (a) ``serve.multiproc.MultiprocessServer`` with 2 and then 4
+    HTTP workers in front of one owner process running the parity scorer
+    (K3 on every batch, ``max_batch`` 256), after the same traffic at the
+    single-process ``ScoreServer`` in this process: 16 client threads send
+    2-s rows to ``/v1/score_raw`` (4 rows a request) and as ``pcm`` JSON;
+    every score against the direct scorer, ``/v1/stats`` summed over the
+    workers, utt/s and p50/p99 latency, the owner's K3 launches read back
+    from it, and only the owner holding the card (its ``/dev/nvidia*``
+    descriptors; ``nvidia-smi --query-compute-apps`` printed beside); (b)
+    ``fit(data_parallel=True)`` with sync-BN at world size 1 over NCCL
+    against the single-process ``fit`` on the same K3 features, and the DP
+    step's time against the single step's; (c) ``make_sharded_masked_llr``
+    at the fused scorer's widths against ``masked_llr``; (d)
+    ``dryrun_multichip(1)``; (e) (b) and (c) on 2 gloo ranks sharing the
+    card, or a line saying why they did not run;
+14. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -117,6 +132,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -156,7 +172,9 @@ from audioanalysisdetector_tpu_torch.io.native_loader import (
 )
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+from audioanalysisdetector_tpu_torch.entry import dryrun_multichip
 from audioanalysisdetector_tpu_torch.models.gmm import (
+    DiagGMM,
     _em_step,
     _em_step_flat,
     _pad_on_device,
@@ -164,11 +182,14 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
     from_numpy,
     map_adapt,
     map_adapt_chunked,
+    masked_llr,
     score_samples,
     to_numpy,
 )
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
+from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm  # the modules: counters
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
@@ -187,6 +208,8 @@ from audioanalysisdetector_tpu_torch.train import (
     make_train_step,
 )
 from audioanalysisdetector_tpu_torch.train.gmm_system import eval_model, make_gmm_feature_fn, train_gmm_system
+from audioanalysisdetector_tpu_torch.train.steps import make_dp_train_step, shard_batch
+from audioanalysisdetector_tpu_torch.serve.multiproc import MultiprocessServer
 from audioanalysisdetector_tpu_torch.serve.server import (
     BatchingScorer,
     ScoreServer,
@@ -1730,6 +1753,432 @@ def phase_features() -> dict:
     return {"ct_mel": launches}
 
 
+# Phase 13: the multi-process server (a), data parallelism at world size 1
+# over NCCL (b), the component-sharded GMM llr at the fused scorer's widths
+# (c), the multi-rank dry run (d) and (b)/(c) on 2 gloo ranks sharing the
+# card (e). Serving traffic: MULTI_CLIENTS threads, each sending
+# MULTI_REQUESTS requests of MULTI_ROWS 2-s rows to /v1/score_raw, every
+# MULTI_PCM_EVERY-th of them one row as a JSON ``pcm`` list instead.
+MULTI_WORKERS = (2, 4)
+MULTI_MAX_BATCH = 256  # the owner's batcher, as phase 7's
+MULTI_CLIENTS, MULTI_REQUESTS, MULTI_ROWS, MULTI_PCM_EVERY = 16, 12, 4, 6
+DP_ROWS, DP_EPOCHS = 2048, 2
+# fit(data_parallel=True) against the single-process fit on the card, from
+# one init on the same batches (dropout 0, Adam 1e-4): the epoch losses and
+# the BatchNorm running statistics at phase 10's card-vs-CPU bounds (the
+# sync-BN forward normalizes by (x - E[x]) rsqrt(E[x^2] - E[x]^2 + eps),
+# flax's arithmetic, where the single step runs cuDNN's batch norm), the
+# parameters at the JAX package's DP bounds (tests/test_train.py:113-117),
+# but those whose gradient is zero in exact arithmetic (the conv bias under
+# the BatchNorm, the softmax attention's bias), which Adam random-walks by
+# up to lr a step, at lr times the steps
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-2, 1e-4
+DP_NULL_GRAD = ("conv.bias", "attention.bias")
+# the sharded llr at the fused scorer's widths (two 128-component GMMs of
+# 19 dims, B=8192 x 63 frames) against masked_llr, relative to the largest
+# |llr|: the component logsumexp split into a max and a sum over the model
+# ranks, fp32
+LLR_B, LLR_T, LLR_D, LLR_K = 8192, 63, 19, 128
+SHARDED_LLR_RTOL = 1e-5
+
+
+def compute_apps() -> list[tuple[int, str]]:
+    """(pid, used memory) of every process nvidia-smi lists as holding a
+    CUDA context (processes of other PID namespaces may not be listed)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return [(int(line.split(",")[0]), line.split(",")[1].strip()) for line in out.splitlines() if line.strip()]
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a card's device file open (a CUDA
+    context opens /dev/nvidia*; importing torch opens none)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:  # the descriptor closed meanwhile
+            continue
+    return False
+
+
+def _get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def multi_traffic(base: str, direct, seed: int) -> dict:
+    """Drive (a)'s traffic at the service on ``base`` and hold every score
+    to ``direct``: utt/s, latency percentiles, the stats' delta, and K3's
+    launches under the traffic: this process's (every counter set to 0
+    just before it and read just after it, before the check's own calls)
+    and the owner's, where the service reports them."""
+    rng = np.random.default_rng(seed)
+    requests = []  # per client: (rows, body, headers, path)
+    for _ in range(MULTI_CLIENTS):
+        mine = []
+        for i in range(MULTI_REQUESTS):
+            if i % MULTI_PCM_EVERY == MULTI_PCM_EVERY - 1:
+                rows = (rng.standard_normal((1, N_SAMPLES)) * 0.1).astype(np.float32)
+                mine.append((rows, json.dumps({"pcm": rows.tolist()}).encode(),
+                             {"Content-Type": "application/json"}, "/v1/score"))
+            else:
+                rows = (rng.standard_normal((MULTI_ROWS, N_SAMPLES)) * 0.1).astype(np.float32)
+                mine.append((rows, rows.astype("<f4").tobytes(),
+                             {"Content-Type": "application/octet-stream", "X-Rows": str(MULTI_ROWS)},
+                             "/v1/score_raw"))
+        requests.append(mine)
+    results = [[None] * MULTI_REQUESTS for _ in range(MULTI_CLIENTS)]
+    latency: list[float] = []
+
+    def client(c: int) -> None:
+        for i, (_, body, headers, path) in enumerate(requests[c]):
+            t = time.perf_counter()
+            try:
+                results[c][i] = _post(base + path, body, headers)
+            except urllib.error.HTTPError as e:  # held below with its body
+                results[c][i] = (e.code, {"error": e.read().decode(errors="replace")})
+            latency.append(time.perf_counter() - t)
+
+    stats0 = _get_json(base + "/v1/stats")
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(MULTI_CLIENTS)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    here = launch_counts()["ct_mel"]
+    stats1 = _get_json(base + "/v1/stats")
+    if any(t.is_alive() for t in threads) or any(r is None for rs in results for r in rs):
+        raise AssertionError(f"multi serve at {base}: a request did not complete")
+    failed = [r for rs in results for r in rs if r[0] != 200]
+    if failed:
+        raise AssertionError(f"multi serve at {base}: {len(failed)} requests failed, first {failed[:3]}")
+    worst, n_rows = 0.0, 0
+    for c in range(MULTI_CLIENTS):
+        for (rows, *_), (status, payload) in zip(requests[c], results[c]):
+            worst = max(worst, float(np.abs(np.asarray(payload["scores"]) - direct(rows)).max()))
+            n_rows += len(rows)
+    if worst > SERVE_TOL:
+        raise AssertionError(f"multi serve at {base}: scores {worst:.3e} from the direct scorer")
+    served = stats1["utterances"] - stats0["utterances"]
+    if served != n_rows:
+        raise AssertionError(f"/v1/stats counted {served} utterances of {n_rows} sent")
+    p50, p99, worst_ms = np.percentile(np.asarray(latency) * 1e3, [50, 99, 100])
+    out = {"requests": MULTI_CLIENTS * MULTI_REQUESTS, "rows": n_rows, "clients": MULTI_CLIENTS,
+           "wall_s": f"{wall:.3f}", "utt_per_s": f"{n_rows / wall:.1f}", "p50_ms": f"{p50:.3f}",
+           "p99_ms": f"{p99:.3f}", "max_ms": f"{worst_ms:.3f}", "max_diff_vs_direct": f"{worst:.3e}", "stats_utterances": served,
+           "stats_batches": stats1["batches"] - stats0["batches"], "mean_batch_fill": stats1["mean_batch_fill"],
+           "ct_mel_launches_here": here}
+    if "kernel_launches" in stats1:
+        out["owner_ct_mel_launches"] = stats1["kernel_launches"]["ct_mel"] - stats0["kernel_launches"]["ct_mel"]
+    return out
+
+
+def dispatch_card_ms(direct) -> dict:
+    """{bucket: (host wall ms, card ms, launches)} of one dispatch of
+    ``direct`` at each bucket of (a)'s ladder (``device_breakdown``: its
+    kernels and its rows' copy to the card): the owner's work per batch,
+    as its batcher pads a batch to its bucket."""
+    rng = np.random.default_rng(31)
+    out = {}
+    for b in default_bucket_ladder(MULTI_MAX_BATCH):
+        rows = (rng.standard_normal((b, N_SAMPLES)) * 0.1).astype(np.float32)
+        wall, card, ranked = device_breakdown(lambda: direct(rows), top=10**6)
+        out[b] = (wall, card, sum(n for _, n, _ in ranked))
+        log("multi", part="a", dispatch_rows=b, wall_ms=f"{wall:.3f}", card_ms=f"{card:.3f}",
+            launches=out[b][2])
+    return out
+
+
+def card_share(traffic: dict, card: dict) -> dict:
+    """The card's time (kernels and copies) under (a)'s traffic over its
+    wall: bounded by its batches all at the smallest and all at the largest
+    bucket, and estimated at the mean dispatch (the rows over the batch
+    fill, per batch) on the line through ``card``'s buckets."""
+    buckets = sorted(card)
+    per = [card[b][1] for b in buckets]
+    batches = traffic["stats_batches"]
+    mean_rows = traffic["rows"] / traffic["mean_batch_fill"] / batches
+    wall_ms = float(traffic["wall_s"]) * 1e3
+    out = {"mean_dispatch_rows": f"{mean_rows:.1f}"}
+    for name, ms in (("lo", min(per)), ("hi", max(per)), ("est", float(np.interp(mean_rows, buckets, per)))):
+        out[f"card_ms_{name}"] = f"{batches * ms:.3f}"
+        out[f"busy_{name}"] = f"{batches * ms / wall_ms:.4f}"
+    return out
+
+
+def multi_serve_single(direct) -> tuple[int, dict]:
+    """(a)'s traffic at the single-process ScoreServer (phase 7's service,
+    in this process): the baseline; returns its K3 launches and
+    ``dispatch_card_ms``."""
+    batcher = BatchingScorer(direct, n_samples=N_SAMPLES, max_batch=MULTI_MAX_BATCH,
+                             bucket_sizes=default_bucket_ladder(MULTI_MAX_BATCH))
+    batcher.warm_up()
+    server = ScoreServer(batcher, sr=SR, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        traffic = multi_traffic(f"http://127.0.0.1:{server.port}", direct, 30)
+    finally:
+        server.close()
+    card = dispatch_card_ms(direct)
+    log("multi", part="a", workers=1, **traffic, **card_share(traffic, card))
+    launches = expect_launched({"ct_mel": traffic["ct_mel_launches_here"]}, "ct_mel", "the single-process service")
+    return launches, card
+
+
+def multi_serve(workers: int, checkpoint: str, direct, card: dict) -> int:
+    """(a) for one worker count: the owner runs the parity scorer (K3 on
+    every batch); returns the owner's K3 launches during the traffic."""
+    apps_before = compute_apps()
+    srv = MultiprocessServer(
+        workers=workers, sr=SR,
+        factory_kwargs=dict(checkpoint=checkpoint, sr=SR, seconds=N_SAMPLES / SR, mel_profile="parity",
+                            device=DEVICE),
+        batcher_kwargs=dict(max_batch=MULTI_MAX_BATCH, bucket_sizes=default_bucket_ladder(MULTI_MAX_BATCH)),
+    )
+    t0 = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t0
+    try:
+        traffic = multi_traffic(f"http://127.0.0.1:{srv.port}", direct, 30 + workers)
+        apps = compute_apps()
+        pids = srv.pids
+        workers_hold = [holds_card(p) for p in pids["workers"]]
+        owner_holds = holds_card(pids["owner"])
+    finally:
+        srv.close()
+    log("multi", part="a", workers=workers, **traffic, **card_share(traffic, card), start_s=f"{start_s:.1f}",
+        owner_holds_card=owner_holds, workers_hold_card=",".join(map(str, workers_hold)),
+        smi_apps_before=len(apps_before), smi_apps=",".join(f"{pid}:{mem.replace(' ', '')}" for pid, mem in apps),
+        owner_pid=pids["owner"], worker_pids=",".join(map(str, pids["workers"])))
+    launches = expect_launched({"ct_mel": traffic["owner_ct_mel_launches"]}, "ct_mel",
+                               f"the owner under {workers} workers' traffic")
+    if traffic["ct_mel_launches_here"]:
+        raise AssertionError(f"this process launched K3 under the {workers} workers' traffic")
+    if any(workers_hold) or not owner_holds:
+        raise AssertionError(f"card held by workers {workers_hold}, owner {owner_holds}")
+    listed = {pid for pid, _ in apps}
+    if listed & set(pids["workers"]):
+        raise AssertionError(f"nvidia-smi lists a worker holding a CUDA context: {apps}")
+    return launches
+
+
+def dp_models(T: int, axis: str | None) -> CNNBiLSTMHybrid:
+    return flax_init_(CNNBiLSTMHybrid(T, logits=True, fixed_attention=True, dropout_rate=0.0, conv_dropout=0.0,
+                                      bn_axis_name=axis), torch.Generator().manual_seed(0))
+
+
+def dp_features(seed: int = 21) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(parity log-mel of DP_ROWS utterances through K3, labels, K3 launches)."""
+    wav, y = train_corpus(DP_ROWS, seed)
+
+    def features():
+        with torch.no_grad():
+            return log_mel_spectrogram(wav, MelConfig.for_profile("parity", SR))
+
+    feats, counts = run_counted(features)
+    return feats, y, expect_launched(counts, "ct_mel", "multi dp features")
+
+
+def dp_fit(feats: torch.Tensor, y: torch.Tensor, data_parallel: bool):
+    state = TrainState.create(model=dp_models(feats.shape[-1], "data" if data_parallel else None).to(DEVICE),
+                              tx=make_optimizer("Adam", 1e-4))
+    split = int(DP_ROWS * 0.8)
+    return fit(state, (feats[:split], y[:split]), (feats[split:], y[split:]), loss_name="BCELoss",
+               num_epochs=DP_EPOCHS, batch_size=TRAIN_BATCH, binary_head=True, plots=False,
+               data_parallel=data_parallel)
+
+
+def dp_compare(logs: list, sd: dict, steps: int, single) -> dict:
+    """A data-parallel fit (its epochs' (train loss, val loss), its model's
+    state_dict and its step count) against the single-process ``single``."""
+    want_logs = [(r.train_loss, r.val_loss) for r in single.logs]
+    loss = max(abs(a / b - 1) for got, want in zip(logs, want_logs) for a, b in zip(got, want))
+    ref = {k: v.detach().cpu() for k, v in single.state.model.state_dict().items()}
+    bn = max(float((sd[k].cpu() - ref[k]).abs().max() / ref[k].abs().max())
+             for k in ("bn.running_mean", "bn.running_var"))
+    worst_param, worst_null = 0.0, 0.0
+    for k, _ in single.state.model.named_parameters():
+        d = (sd[k].detach().cpu() - ref[k]).abs()
+        if k in DP_NULL_GRAD:
+            worst_null = max(worst_null, float(d.max()))
+        else:
+            worst_param = max(worst_param, float((d - DP_PARAM_RTOL * ref[k].abs()).max()))
+    out = {"loss_rel_diff": loss, "bn_rel_diff": bn, "param_excess": worst_param, "null_grad_diff": worst_null,
+           "steps": steps}
+    if (loss > TRAIN_LOSS_RTOL or bn > TRAIN_BN_RTOL or worst_param > DP_PARAM_ATOL
+            or worst_null > 1e-4 * single.state.step or steps != single.state.step):
+        raise AssertionError(f"data-parallel fit against the single one: {out}")
+    return out
+
+
+def _fmt(d: dict) -> dict:
+    return {k: (f"{v:.3e}" if isinstance(v, float) else v) for k, v in d.items()}
+
+
+def sharded_llr_check(mesh) -> dict:
+    """(c): the component-sharded llr of this rank's rows against
+    masked_llr, and both times in turns."""
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+
+    def gmm() -> DiagGMM:
+        return DiagGMM(weights=torch.softmax(torch.randn(LLR_K, generator=g, device=DEVICE), 0),
+                       means=torch.randn((LLR_K, LLR_D), generator=g, device=DEVICE),
+                       variances=torch.rand((LLR_K, LLR_D), generator=g, device=DEVICE) + 0.5)
+
+    g1, g2 = gmm(), gmm()
+    x = torch.randn((LLR_B, LLR_T, LLR_D), generator=g, device=DEVICE)
+    lengths = torch.randint(LLR_T // 2, LLR_T + 1, (LLR_B, 1), generator=g, device=DEVICE)
+    mask = torch.arange(LLR_T, device=DEVICE) < lengths
+    x, mask = shard_batch((x, mask), mesh, axis="data")
+    sharded = make_sharded_masked_llr(mesh, g1, g2)
+    with torch.no_grad():
+        got, ref = sharded(x, mask), masked_llr(x, mask, g1, g2)
+        t = in_turns(lambda: sharded(x, mask), lambda: masked_llr(x, mask, g1, g2))
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not bool(torch.isfinite(got).all()) or rel > SHARDED_LLR_RTOL:
+        raise AssertionError(f"sharded llr: rel diff {rel:.3e} > {SHARDED_LLR_RTOL}")
+    return {"rel_diff": rel, "ms": t["ms"], "plain_ms": t["plain_ms"], "rows": len(x)}
+
+
+def _gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """(e): one of 2 gloo ranks sharing the card: the data-parallel fit and
+    the sharded llr on a (1 data x 2 model) mesh."""
+    import pickle
+
+    import torch.distributed as dist
+
+    # gloo over CUDA tensors: NCCL refuses two ranks on one card
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
+    try:
+        try:
+            probe = torch.ones(1, device=DEVICE)
+            dist.all_reduce(probe)
+        except RuntimeError as e:  # this torch build's gloo takes no CUDA tensors
+            result = {"gloo_cuda": False, "error": f"{type(e).__name__}: {e}"}
+        else:
+            feats, y, launches = dp_features()
+            res = dp_fit(feats, y, True)
+            result = {"gloo_cuda": True, "launches": launches,
+                      "logs": [(r.train_loss, r.val_loss) for r in res.logs], "steps": res.state.step,
+                      "sd": {k: v.cpu() for k, v in res.state.model.state_dict().items()},
+                      "llr": sharded_llr_check(make_mesh_2d(1, world))}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def multi_gloo(single) -> None:
+    """(e): spawn 2 gloo ranks on the card; hold their fit to ``single``."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=_gloo_rank, args=(r, 2, "file://" + os.path.join(d, "rdzv"), d))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"gloo ranks exited with {codes}")
+        results = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    if not results[0]["gloo_cuda"]:
+        log("multi", part="e", ran=False, reason=results[0]["error"][:200].replace(" ", "_"))
+        return
+
+    for rank, r in enumerate(results):
+        cmp = dp_compare(r["logs"], r["sd"], r["steps"], single)
+        log("multi", part="e", ran=True, rank=rank, ranks=2, backend="gloo", wall_s=f"{wall:.1f}",
+            ct_mel_launches=r["launches"], **_fmt(cmp), llr_rel_diff=f"{r['llr']['rel_diff']:.3e}",
+            llr_rows=r["llr"]["rows"], llr_ms=f"{r['llr']['ms']:.3f}", llr_plain_ms=f"{r['llr']['plain_ms']:.3f}")
+
+
+def phase_multi() -> dict:
+    """Phase 13; returns the K3 launches of its main paths (the owner's
+    under traffic and the data-parallel features)."""
+    import torch.distributed as dist
+
+    cfg = MelConfig.for_profile("parity", SR)
+    launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint = random_checkpoint(d, cfg)
+        direct, _ = build_mel_scorer(checkpoint=checkpoint, sr=SR, seconds=N_SAMPLES / SR, device=DEVICE)
+        n, card = multi_serve_single(direct)
+        launches += n
+        for workers in MULTI_WORKERS:
+            launches += multi_serve(workers, checkpoint, direct, card)
+
+    with tempfile.TemporaryDirectory() as d:
+        initialize_distributed("file://" + os.path.join(d, "rdzv"), 1, 0, device=DEVICE)
+        try:
+            # (b) fit(data_parallel=True) at world size 1 over NCCL
+            feats, y, n = dp_features()
+            launches += n
+            t0 = time.perf_counter()
+            single = dp_fit(feats, y, False)
+            t1 = time.perf_counter()
+            dp = dp_fit(feats, y, True)
+            t2 = time.perf_counter()
+            cmp = dp_compare([(r.train_loss, r.val_loss) for r in dp.logs], dp.state.model.state_dict(),
+                             dp.state.step, single)
+            mesh = make_mesh(1)
+            states = [TrainState.create(model=dp_models(feats.shape[-1], a).to(DEVICE), tx=make_optimizer("Adam", 1e-4))
+                      for a in (None, "data")]
+            single_step = make_train_step(get_loss("BCELoss"), binary_head=True)
+            dp_step = make_dp_train_step(get_loss("BCELoss"), mesh, binary_head=True)
+            xb, yb = feats[:TRAIN_BATCH].contiguous(), y[:TRAIN_BATCH].contiguous()
+            g = torch.Generator(device=DEVICE).manual_seed(0)
+            t = in_turns(lambda: dp_step(states[1], xb, yb, g), lambda: single_step(states[0], xb, yb, g), iters=20)
+            # one step's kernels and launches, each step alone (torch.profiler)
+            steps = {name: device_breakdown(fn, top=10**6) for name, fn in (
+                ("dp", lambda: dp_step(states[1], xb, yb, g)), ("single", lambda: single_step(states[0], xb, yb, g)))}
+            for name, (wall, card, ranked) in steps.items():
+                log("multi", part="b", step=name, wall_ms=f"{wall:.3f}", card_ms=f"{card:.3f}",
+                    launches=sum(n for _, n, _ in ranked), nccl_ms=f"{sum(ms for ms, _, k in ranked if 'nccl' in k.lower()):.3f}")
+            log("multi", part="b", backend=dist.get_backend(), world=dist.get_world_size(), rows=DP_ROWS,
+                epochs=DP_EPOCHS, batch=TRAIN_BATCH, ct_mel_launches=n, single_fit_s=f"{t1 - t0:.3f}",
+                dp_fit_s=f"{t2 - t1:.3f}", dp_step_ms=f"{t['ms']:.3f}", single_step_ms=f"{t['plain_ms']:.3f}",
+                train_loss=",".join(f"{r.train_loss:.6f}" for r in dp.logs), **_fmt(cmp))
+            # (c) the component-sharded llr on a (1 x 1) mesh
+            llr = sharded_llr_check(make_mesh_2d(1, 1))
+            log("multi", part="c", world=1, batch=LLR_B, frames=LLR_T, dim=LLR_D, components=LLR_K,
+                rel_diff=f"{llr['rel_diff']:.3e}", ms=f"{llr['ms']:.3f}", plain_ms=f"{llr['plain_ms']:.3f}")
+        finally:
+            dist.destroy_process_group()
+    del feats, xb, yb, states
+    free()
+
+    # (d) the dry run: one NCCL rank on the card, in a process of its own
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    log("multi", part="d", ranks=1, wall_s=f"{time.perf_counter() - t0:.1f}")
+
+    # (e) (b) and (c) again on 2 gloo ranks sharing the card
+    multi_gloo(single)
+    return {"ct_mel": launches}
+
+
 def timed_phase(phase):
     """``phase()``, with its wall printed after it."""
     t0 = time.perf_counter()
@@ -1753,6 +2202,7 @@ def main() -> int:
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
+    launches["ct_mel"] += timed_phase(phase_multi)["ct_mel"]
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],

@@ -142,7 +142,8 @@ def test_port_imports_without_jax():
         "import audioanalysisdetector_tpu_torch as P\n"
         "names = [mi.name for mi in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
         "for m in ('frontend.cepstral', 'frontend.wpt', 'frontend.eda', 'frontend.istft', "
-        "'frontend.formants', 'data.augment', 'data.pipeline'):\n"
+        "'frontend.formants', 'data.augment', 'data.pipeline', 'parallel.mesh', "
+        "'parallel.sharded_gmm', 'serve.multiproc'):\n"
         "    assert P.__name__ + '.' + m in names, m\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -153,6 +154,7 @@ def test_port_imports_without_jax():
         "build_parser().parse_args(['train-asvspoof', 'a', 'b', '--audio-dir', '.', '--gmm-cmvn', '--augment'])\n"
         "build_parser().parse_args(['extract', '.', '--feature', 'lfcc'])\n"
         "build_parser().parse_args(['augment', '.', '--pitch-steps', '1'])\n"
+        "build_parser().parse_args(['serve', '--workers', '2', '--data-parallel', 'off'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'msgpack', 'pandas', 'yaml', 'audioanalysisdetector_tpu') "
         "and sys.modules[m] is not None]\n"

@@ -168,10 +168,44 @@ def test_server_lanes_match_direct_scorer(tmp_path):
 
 
 def test_cli_serve_refuses_what_is_not_ported(capsys):
+    """No checkpoint, and ``--data-parallel on`` on one device (the JAX
+    package's error), exit 2; ``--workers 2`` runs
+    (tests/test_torch_serve_multiproc.py)."""
     assert cli_main(["serve"]) == 2  # no checkpoint and no --allow-random
-    assert cli_main(["serve", "--allow-random", "--workers", "2"]) == 2
-    assert cli_main(["serve", "--allow-random", "--data-parallel", "on"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert "--allow-random" in capsys.readouterr().err
+    assert cli_main(["serve", "--allow-random", "--device", "cpu", "--data-parallel", "on"]) == 2
+    assert "data_parallel=True but only one local device" in capsys.readouterr().err
+
+
+def test_cli_serve_workers_runs_on_cpu():
+    """``serve --workers 2 --data-parallel off --device cpu``: one owner and
+    two HTTP workers answer on one port, /v1/stats aggregates them, and
+    SIGTERM stops every process."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audioanalysisdetector_tpu_torch", "serve", "--allow-random",
+         "--device", "cpu", "--port", "0", "--max-batch", "2", "--mel-profile", "speech",
+         "--workers", "2", "--data-parallel", "off"],
+        stdout=subprocess.PIPE, text=True, cwd=Path(__file__).resolve().parents[1],
+    )
+    try:
+        info = json.loads(proc.stdout.readline())
+        assert info["workers"] == 2 and info["buckets"] == [1, 2]
+        base = info["listening"]
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            assert json.loads(resp.read())["platform"] == "cpu"
+        rows = (np.random.default_rng(0).standard_normal((3, 32000)) * 0.1).astype("<f4")
+        for _ in range(2):
+            req = urllib.request.Request(base + "/v1/score_raw", data=rows.tobytes(),
+                                         headers={"X-Rows": "3", "Content-Type": "application/octet-stream"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                scores = json.loads(resp.read())["scores"]
+            assert len(scores) == 3 and all(0.0 < v < 1.0 for v in scores)
+        with urllib.request.urlopen(base + "/v1/stats", timeout=30) as resp:
+            assert json.loads(resp.read())["utterances"] == 6
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=60) == 0
+        proc.stdout.close()
 
 
 def test_cli_serve_runs_on_cpu():

@@ -138,5 +138,12 @@ def test_masked_map_equals_map_of_the_subset(ubm):
     kw = dict(adapt_vars=True, adapt_weights=True)
     masked = T.map_adapt(tubm, torch.from_numpy(x), frame_weights=torch.from_numpy(keep.astype(np.float32)), **kw)
     subset = T.map_adapt(tubm, torch.from_numpy(x[keep]), **kw)
-    for k in ("weights", "means", "variances"):
+    for k in ("weights", "means"):
         torch.testing.assert_close(getattr(masked, k), getattr(subset, k), rtol=1e-5, atol=1e-5)
+    # variances relative to their largest entry, as every MAP parameter in
+    # this file: E[x^2] - mu^2 over frames up to |x| ~ 12.7 (x^2 ~ 162, an
+    # fp32 ulp ~1e-5) summed over 2000 weighted frames against 500 sliced
+    # ones differs by ~3e-5 of a largest variance ~1.6, in the port and in
+    # the JAX package's own map_adapt alike
+    want = subset.variances.numpy()
+    np.testing.assert_allclose(masked.variances.numpy(), want, rtol=0, atol=PARAM_RTOL * np.abs(want).max())

@@ -129,9 +129,13 @@ def test_fit_takes_tensors_as_it_takes_arrays():
 
 
 def test_fit_refuses_data_parallel():
+    """``data_parallel=True`` in a process that joined no process group is
+    one device: the JAX package's ValueError (its 2-rank run is
+    tests/test_torch_parallel.py's)."""
     train, val = _cnn_data()
-    with pytest.raises(NotImplementedError, match="step 9"):
+    with pytest.raises(ValueError, match="data_parallel=True but only one local device"):
         loop.fit(_cnn_states()[0], train, val, loss_name="BCELoss", binary_head=True, data_parallel=True)
+    assert not loop.would_use_dp(BATCH)
 
 
 def test_batch_iter_matches_jax():
