@@ -10,8 +10,11 @@ served over HTTP and over files from disk (``score`` command); the flagship
 fused scorer, wav -> CQCC -> GMM ⊕ BiLSTM, with the loaders of a
 JAX-trained model dir; training: the CNN-BiLSTM (``train``), the
 BiLSTM classifier and the GMM-UBM (EM, MAP), with the flagship
-``train-fused`` and ``train-asvspoof`` recipes; and every feature extractor
-with the augmentations (``extract``, ``augment``).
+``train-fused`` and ``train-asvspoof`` recipes; every feature extractor
+with the augmentations (``extract``, ``augment``); multi-device and
+multi-process work; the ResNet family and MobileNet-MFCA with their
+sweeps (``train-3features``, ``train-mfca``); and the XAI subsystem
+(``xai``).
 
 - ``frontend``: STFT power, Slaney mel, dB (``melspectrogram`` launches a
   hand-written kernel on CUDA tensors: ``ops.ct_mel`` at the parity
@@ -21,17 +24,21 @@ with the augmentations (``extract``, ``augment``).
 - ``ops``:      hand-written Hopper kernels (CUDA C++, built with nvcc at
   first use) beside their plain PyTorch versions.
 - ``models``:   BiLSTM, the CNN-BiLSTM hybrid, the fused system's BiLSTM
-  classifier and the diagonal GMM (scoring, EM, MAP).
+  classifier, the diagonal GMM (scoring, EM, MAP), the anti-spoofing
+  ResNet family and MobileNetV2 + MFCA.
 - ``score``:    the end-to-end mel and fused scorers; streaming file scoring.
 - ``serve``:    the micro-batching HTTP service; ``cli`` the command line.
 - ``io``:       WAV/FLAC decoders, the native batch loader, YAML config.
 - ``train``:    losses, optimizers, loops, checkpoints in the JAX package's
-  format, metrics, the GMM-UBM system, the surrogate quality lane;
+  format, metrics, the GMM-UBM system, the surrogate quality lane, the
+  ResNet sweep and the notebook drivers;
+- ``xai``:      saliency, integrated gradients, occlusion, Grad-CAM, LIME,
+  kernel-SHAP of the GMM scorer, comparisons, plots, the HTML report;
   ``data``:     metadata, chunking, balancing, augmentation (noise, shift,
   phase-vocoder pitch shift, SpecAugment), batched feature extraction
   (tables are lists of row dicts: no pandas), the frame scaler, bucketing,
   the synthetic surrogate corpus.
-- ``convert``:  flax parameters -> the port's state_dict.
+- ``convert``:  flax parameters and optax states <-> the port's.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,9 @@
   train          CNN-BiLSTM training run on log-mel features
   train-fused    GMM(+)BiLSTM flagship system: CQCC -> BiLSTM + GMM-UBM -> fused EER
   train-asvspoof metadata-driven flagship recipe on an ASVspoof-layout corpus
+  train-3features  shared-trunk (cqcc, gtcc, mfcc) fusion net (notebook cells 32-33)
+  train-mfca     MobileNetV2+MFCA on log-mel (notebook cells 29-31)
+  xai            attribution heatmaps (saliency, Grad-CAM, IG, occlusion, LIME) for one WAV
 
 The flags are those of the JAX package's commands, plus ``--device``.
 ``serve --data-parallel`` splits each dispatch over the local cards;
@@ -319,6 +322,173 @@ def cmd_train_asvspoof(args) -> int:
         "n_train": int(len(y_tr)), "n_eval": int(len(y_te)),
         "calibration": {"scale": calibration[0], "bias": calibration[1], "weight": calibration[2]},
     }))
+    return 0
+
+
+def cmd_train_3features(args) -> int:
+    """The JAX package's ``train-3features`` on ``--device``: decode, CQCC,
+    GFCC and MFCC made on the device under ``torch.no_grad()`` (CQCC and GFCC
+    plain torch, MFCC's 128-mel power through K3 on the card), the seeded
+    80/20 split, ``train_3features``; one JSON line of the best state's
+    metrics on stdout, the run's kernel launch counts on stderr."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.frontend.cepstral import CepstralConfig, gfcc
+    from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc
+    from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig, mfcc
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.train.sweep import train_3features
+
+    paths = _collect_wavs(args.audio)
+    if len(paths) < 8:
+        print("need at least 8 labeled WAVs", file=sys.stderr)
+        return 1
+    paths, wav = _load_batch(_shuffle(paths, args.seed), args.seconds, args.sr)
+    if not _require_decoded(paths, 8):
+        return 1
+    y = _labels_from_dirnames(paths)
+    with torch.no_grad():
+        w = torch.from_numpy(wav).to(args.device)
+        feats = (
+            cqcc(w, CQCCConfig.for_sr(args.sr)),
+            # gtcc stays in its spafe (T, 13) layout, as the reference's
+            # MultiFeatureDataset feeds it (the trunk is shape-agnostic)
+            gfcc(w, CepstralConfig(fs=args.sr, nfilts=40, fb_kind="gammatone")),
+            mfcc(w, MFCCConfig.for_sr(args.sr)),
+        )
+    split = max(int(len(paths) * 0.8), 2)
+    out = train_3features(
+        tuple(f[:split] for f in feats), y[:split],
+        tuple(f[split:] for f in feats), y[split:],
+        epochs=args.epochs, lr=args.lr, batch_size=args.batch_size,
+        out_dir=args.run_dir, seed=args.seed, device=args.device,
+    )
+    print(json.dumps(out["best"]))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def cmd_train_mfca(args) -> int:
+    """The JAX package's ``train-mfca`` on ``--device``: log-mel
+    (``MelConfig(sr, n_mels)``, K3 on the card) under ``torch.no_grad()``,
+    the seeded 80/20 split, ``train_mfca``; one JSON line of the best
+    state's metrics, the kernel launch counts on stderr."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.train.sweep import train_mfca
+
+    paths = _collect_wavs(args.audio)
+    if len(paths) < 8:
+        print("need at least 8 labeled WAVs", file=sys.stderr)
+        return 1
+    paths, wav = _load_batch(_shuffle(paths, args.seed), args.seconds, args.sr)
+    if not _require_decoded(paths, 8):
+        return 1
+    y = _labels_from_dirnames(paths)
+    with torch.no_grad():
+        feats = log_mel_spectrogram(torch.from_numpy(wav).to(args.device), MelConfig(sr=args.sr, n_mels=args.n_mels))
+    split = max(int(len(paths) * 0.8), 2)
+    out = train_mfca(
+        feats[:split], y[:split], feats[split:], y[split:],
+        epochs=args.epochs, lr=args.lr, batch_size=args.batch_size,
+        out_dir=args.run_dir, seed=args.seed, device=args.device,
+    )
+    print(json.dumps(out["best"]))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def cmd_xai(args) -> int:
+    """The JAX package's ``xai`` on ``--device``: the first file's log-mel
+    (``MelConfig(sr, n_mels)``, K3 on the card) under ``torch.no_grad()``,
+    an ``AntiSpoofingResNet`` from ``flax_init_`` seeded 0 (the JAX command's
+    ``PRNGKey(0)``; no checkpoint, as there), the chosen attributions, their
+    PNGs (skipped without matplotlib) and the optional HTML page. stdout:
+    the LIME line when asked, then the written paths; stderr: the kernel
+    launch counts. Heatmaps are (T, F): the (F, T) maps transposed."""
+    import torch
+
+    from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
+    from audioanalysisdetector_tpu_torch.models.layers import flax_init_
+    from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.score.fused import ieee_fp32
+    from audioanalysisdetector_tpu_torch.xai import (
+        grad_cam,
+        integrated_gradients,
+        lime_single_instance,
+        occlusion,
+        plot_gradcam_overlay,
+        plot_heatmaps,
+        saliency,
+        write_explanation_html,
+    )
+
+    ieee_fp32()
+    paths = _collect_wavs(args.audio)[:1]
+    if not paths:
+        print(f"no WAV files under {args.audio}", file=sys.stderr)
+        return 1
+    paths, wav = _load_batch(paths, args.seconds, args.sr)
+    if not paths:
+        print("no readable WAV files", file=sys.stderr)
+        return 1
+    mel_cfg = MelConfig(sr=args.sr, n_mels=args.n_mels)
+    with torch.no_grad():
+        feats = log_mel_spectrogram(torch.from_numpy(wav).to(args.device), mel_cfg)
+    model = flax_init_(AntiSpoofingResNet(), torch.Generator().manual_seed(0)).to(args.device).eval()
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    methods = args.methods.split(",")
+    heatmaps = {}
+    out = []
+    if "saliency" in methods:
+        heatmaps["saliency"] = host(saliency(model, feats)[0]).T  # (F, T) -> plot contract (T, F)
+    if "gradcam" in methods:
+        cam = grad_cam(model, feats, output_size=tuple(feats.shape[-2:]))
+        heatmaps["grad_cam"] = host(cam[0]).T
+        # the notebook's overlay-on-mel-axes figure (cell 34)
+        overlay = plot_gradcam_overlay(
+            host(feats[0]), host(cam[0]), sr=args.sr, hop_length=mel_cfg.hop_length,
+            fmax=mel_cfg.fmax, out_path=os.path.join(args.output_dir, "gradcam_overlay.png"),
+        )
+    if "ig" in methods:
+        ig = integrated_gradients(model, feats, steps=args.ig_steps)
+        heatmaps["integrated_gradients"] = np.abs(host(ig[0])).T
+    if "occlusion" in methods:
+        # feats are coefficients-first (B, n_mels, T); the reference's (5, 1)
+        # window means 5 TIME frames x 1 coefficient (tets_xai.py:84), so on
+        # this layout the window is (1 mel bin, 5 frames)
+        heatmaps["occlusion"] = host(occlusion(model, feats, window=(1, 5))[0]).T
+    if "lime" in methods:
+        @torch.no_grad()
+        def scorer(batch):
+            return torch.softmax(model(batch), dim=-1)[:, 1]
+
+        lime = lime_single_instance(scorer, feats[0], n_perturbations=args.lime_perturbations)
+        print(json.dumps({
+            "lime_top_components": lime["top_components"],
+            "lime_score": lime["score"],
+            "lime_label": lime["label"],
+        }))
+    out += plot_heatmaps(heatmaps, args.output_dir, prefix=os.path.splitext(os.path.basename(paths[0]))[0])
+    if "gradcam" in methods and overlay is not None:
+        out.append(overlay)
+    if args.html:
+        with torch.no_grad():
+            probs = torch.softmax(model(feats), dim=-1)
+        out.append(write_explanation_html(
+            os.path.join(args.output_dir, "explanation.html"),
+            score=float(probs[0, 1]), heatmaps=heatmaps,
+            title=f"Explanation: {os.path.basename(paths[0])}",
+        ))
+    if out:
+        print("\n".join(out))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -729,6 +899,35 @@ def build_parser() -> argparse.ArgumentParser:
     fusion_flags(sp)
     device_flag(sp)
     sp.set_defaults(fn=cmd_train_asvspoof)
+
+    sp = sub.add_parser("train-3features", help="3-feature (cqcc+gtcc+mfcc) shared-trunk fusion net")
+    clip_flags(sp)
+    sp.add_argument("--epochs", type=int, default=50)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--lr", type=float, default=1e-4)
+    sp.add_argument("--run-dir", default="runs/MoreFeatures")
+    sp.set_defaults(fn=cmd_train_3features)
+
+    sp = sub.add_parser("train-mfca", help="MobileNetV2+MFCA on log-mel")
+    clip_flags(sp)
+    sp.add_argument("--n-mels", type=int, default=64)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--lr", type=float, default=1e-4)
+    sp.add_argument("--run-dir", default="runs/MobileNet-MFCA")
+    sp.set_defaults(fn=cmd_train_mfca)
+
+    sp = sub.add_parser("xai", help="attribution heatmaps for one WAV")
+    clip_flags(sp)
+    sp.add_argument("--n-mels", type=int, default=64)
+    sp.add_argument("--output-dir", default="xai_out")
+    sp.add_argument("--methods", default="saliency,gradcam",
+                    help="comma list: saliency,gradcam,ig,occlusion,lime")
+    sp.add_argument("--ig-steps", type=int, default=20)
+    sp.add_argument("--lime-perturbations", type=int, default=30)
+    sp.add_argument("--html", action="store_true",
+                    help="also write a self-contained explanation.html")
+    sp.set_defaults(fn=cmd_xai)
 
     sp = sub.add_parser(
         "serve", help="HTTP scoring service with dynamic micro-batching"

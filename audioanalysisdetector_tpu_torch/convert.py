@@ -23,6 +23,17 @@ their exact inverses (numpy float32 leaves, keys in the order flax's
 ``model.init`` makes them). Both directions read one table per model
 (``_layout``).
 
+The 2-D models (``models.resnet.AntiSpoofingResNet``,
+``MoreFeaturesClassifier``, ``models.mobilenet_mfca.MobileNetMFCA``) name
+their modules as the flax tree does, so their table is read off the state
+dict (``_mirrored_layout``): a conv kernel ``(kh, kw, in / groups, out)``
+(HWIO) -> ``(out, in / groups, kh, kw)`` (OIHW; a depthwise ``(3, 3, 1, C)``
+-> ``(C, 1, 3, 3)``), Dense kernels transposed, BatchNorm as above. flax
+creates no parameters for a submodule that is never called, so the ResNet's
+``shortcut_conv`` / ``shortcut_bn`` exist in ``block0`` alone, in both
+trees. ``flax_to_torch_resnet`` / ``_more_features`` / ``_mobilenet_mfca``
+and their ``torch_to_flax_*`` inverses are that one rule.
+
 ``torch_to_flax_opt_state`` writes a torch optimizer's state in the layout
 optax's ``opt_state`` serialises to (``train.optimizers``' four
 optimizers), and ``flax_to_torch_opt_state`` loads such a tree into a
@@ -32,11 +43,15 @@ torch optimizer:
   ``"2": {}``; ``mu``/``nu`` are torch's ``exp_avg``/``exp_avg_sq`` and
   ``count`` its per-parameter ``step``;
 - SGD ``{"0": {"trace"}, "1": {}}``, torch's ``momentum_buffer``;
-- RMSprop ``{"0": {"nu"}, "1": {}, "2": {}}``.
+- RMSprop ``{"0": {"nu"}, "1": {}, "2": {}}``;
+- Adam with L2 weight decay (torch ``Adam(weight_decay > 0)``, the sweep's
+  ``optax.chain(add_decayed_weights(wd), adam(lr))``, the same update):
+  ``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}}}``.
 
 The moments are parameter-shaped and take the parameters' own transposes.
 
-``random_flax_cnn_bilstm`` and ``random_flax_bilstm_classifier`` make such
+``random_flax_cnn_bilstm``, ``random_flax_bilstm_classifier`` and
+``random_flax_resnet`` / ``_more_features`` / ``_mobilenet_mfca`` make such
 trees from a numpy seed, and ``random_diag_gmm`` the numpy arrays of a
 diagonal GMM, so tests and the card check feed the same numbers to both
 packages without JAX.
@@ -49,9 +64,15 @@ import torch
 
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
+from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
+
+# the 2-D models, whose module names follow the flax tree
+MIRRORED = (AntiSpoofingResNet, MoreFeaturesClassifier, MobileNetMFCA)
 
 # how a flax leaf becomes the torch tensor: "" as it is, "T" transposed
-# (Dense kernels, LSTM weights), "conv" (3, Cin, Cout) -> (Cout, Cin, 3)
+# (Dense kernels, LSTM weights), "conv" (3, Cin, Cout) -> (Cout, Cin, 3),
+# "conv2d" HWIO -> OIHW
 _LSTM_PARTS = (("weight_ih_l0", "w_ih", "T"), ("weight_hh_l0", "w_hh", "T"),
                ("bias_ih_l0", "b_ih", ""), ("bias_hh_l0", "b_hh", ""))
 
@@ -88,11 +109,33 @@ def _bilstm_classifier_layout() -> list[tuple[str, tuple, str]]:
 _BN_STATS = (("bn.running_mean", ("bn", "mean")), ("bn.running_var", ("bn", "var")))
 
 
+def _mirrored_layout(state_dict: dict) -> tuple[list[tuple[str, tuple, str]], list[tuple[str, tuple]]]:
+    """(params table, batch_stats table) of a model whose module names are
+    the flax tree's: a module with running statistics is a BatchNorm, a 4-D
+    weight a conv kernel, a 2-D one a Dense kernel."""
+    params, stats = [], []
+    for name, t in state_dict.items():
+        module, leaf = name.rsplit(".", 1)
+        path = tuple(module.split("."))
+        if leaf == "weight":
+            if f"{module}.running_mean" in state_dict:
+                params.append((name, (*path, "scale"), ""))
+            else:
+                params.append((name, (*path, "kernel"), "conv2d" if t.dim() == 4 else "T"))
+        elif leaf == "bias":
+            params.append((name, (*path, "bias"), ""))
+        elif leaf in ("running_mean", "running_var"):
+            stats.append((name, (*path, leaf[len("running_"):])))
+    return params, stats
+
+
 def _layout(model: torch.nn.Module) -> list[tuple[str, tuple, str]]:
     if isinstance(model, CNNBiLSTMHybrid):
         return _cnn_bilstm_layout(not model.fixed_attention)
     if isinstance(model, BiLSTMClassifier):
         return _bilstm_classifier_layout()
+    if isinstance(model, MIRRORED):
+        return _mirrored_layout(model.state_dict())[0]
     raise TypeError(f"no flax layout for {type(model).__name__}")
 
 
@@ -102,6 +145,8 @@ def _to_torch(a, how: str) -> torch.Tensor:
         return t.T.contiguous()
     if how == "conv":
         return t.permute(2, 1, 0).contiguous()
+    if how == "conv2d":
+        return t.permute(3, 2, 0, 1).contiguous()
     return t
 
 
@@ -111,6 +156,8 @@ def _to_flax(t: torch.Tensor, how: str) -> np.ndarray:
         a = a.T
     elif how == "conv":
         a = a.transpose(2, 1, 0)
+    elif how == "conv2d":
+        a = a.transpose(2, 3, 1, 0)
     return np.ascontiguousarray(a)
 
 
@@ -223,18 +270,103 @@ def torch_to_flax_bilstm_classifier(state_dict: dict[str, torch.Tensor]) -> dict
     return {"params": _torch_to_flax(state_dict, _bilstm_classifier_layout())}
 
 
+def _flax_to_torch_mirrored(variables: dict) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a 2-D model -> torch state_dict
+    (the table read off the flax tree; without ``batch_stats`` the model's
+    own statistics stay)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: tuple) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, (*prefix, k))
+                continue
+            module = ".".join(prefix)
+            if k == "kernel":
+                sd[f"{module}.weight"] = _to_torch(v, "conv2d" if np.ndim(v) == 4 else "T")
+            elif k == "scale":
+                sd[f"{module}.weight"] = _to_torch(v, "")
+            elif k == "bias":
+                sd[f"{module}.bias"] = _to_torch(v, "")
+            else:  # batch_stats: mean / var
+                sd[f"{module}.running_{k}"] = _to_torch(v, "")
+                sd.setdefault(f"{module}.num_batches_tracked", torch.tensor(0, dtype=torch.int64))
+
+    walk(variables["params"], ())
+    walk(variables.get("batch_stats") or {}, ())
+    return sd
+
+
+def _torch_to_flax_mirrored(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``_flax_to_torch_mirrored``: ``{"params",
+    "batch_stats"}`` with numpy float32 leaves."""
+    params, stats = _mirrored_layout(state_dict)
+    out_stats: dict = {}
+    for name, path in stats:
+        _put(out_stats, path, _to_flax(state_dict[name], ""))
+    return {"params": _torch_to_flax(state_dict, params), "batch_stats": out_stats}
+
+
+flax_to_torch_resnet = flax_to_torch_more_features = flax_to_torch_mobilenet_mfca = _flax_to_torch_mirrored
+torch_to_flax_resnet = torch_to_flax_more_features = torch_to_flax_mobilenet_mfca = _torch_to_flax_mirrored
+
+
+def _random_flax_mirrored(model: torch.nn.Module, seed: int) -> dict:
+    """A flax-layout ``variables`` tree of ``model``'s shapes, numpy f32 from
+    a seed: conv and Dense kernels uniform in +-sqrt(6 / fan_in) (the fan-in
+    scale that keeps activations near unit size through the depth), biases
+    in +-0.1, BatchNorm scales in [0.5, 1.5), shifts in +-0.5, statistics
+    means in +-0.5 and variances in [0.5, 1.5): no layer is the identity."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    params, stats = _mirrored_layout(model.state_dict())
+    sd = {}
+    for name, path, _ in params:
+        is_bn = f"{name.rsplit('.', 1)[0]}.running_mean" in shapes
+        if path[-1] == "scale":
+            lo, hi = 0.5, 1.5
+        elif path[-1] == "bias":
+            lo, hi = (-0.5, 0.5) if is_bn else (-0.1, 0.1)
+        else:
+            b = float(np.sqrt(6.0 / np.prod(shapes[name][1:])))
+            lo, hi = -b, b
+        sd[name] = torch.from_numpy(rng.uniform(lo, hi, shapes[name]).astype(np.float32))
+    for name, path in stats:
+        lo, hi = (-0.5, 0.5) if path[-1] == "mean" else (0.5, 1.5)
+        sd[name] = torch.from_numpy(rng.uniform(lo, hi, shapes[name]).astype(np.float32))
+    return _torch_to_flax_mirrored(sd)
+
+
+def random_flax_resnet(seed: int, num_classes: int = 2) -> dict:
+    """A flax-layout ``AntiSpoofingResNet`` tree from a seed (``_random_flax_mirrored``)."""
+    return _random_flax_mirrored(AntiSpoofingResNet(num_classes), seed)
+
+
+def random_flax_more_features(seed: int, num_classes: int = 2) -> dict:
+    """A flax-layout ``MoreFeaturesClassifier`` tree from a seed."""
+    return _random_flax_mirrored(MoreFeaturesClassifier(num_classes), seed)
+
+
+def random_flax_mobilenet_mfca(seed: int, num_classes: int = 2) -> dict:
+    """A flax-layout ``MobileNetMFCA`` tree from a seed."""
+    return _random_flax_mirrored(MobileNetMFCA(num_classes), seed)
+
+
 def _opt_kind(optimizer: torch.optim.Optimizer) -> str:
     from audioanalysisdetector_tpu_torch.train.optimizers import RMSprop  # train imports this module
 
     for cls, kind in ((torch.optim.AdamW, "AdamW"), (torch.optim.Adam, "Adam"),
                       (torch.optim.SGD, "SGD"), (RMSprop, "RMSprop")):
         if isinstance(optimizer, cls):
+            if kind == "Adam" and optimizer.param_groups[0]["weight_decay"] > 0:
+                return "AdamL2"
             return kind
     raise TypeError(f"no optax layout for {type(optimizer).__name__}")
 
 
 # optax state name -> the torch optimizer's per-parameter state key
-_MOMENTS = {"Adam": {"mu": "exp_avg", "nu": "exp_avg_sq"}, "AdamW": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+_ADAM = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+_MOMENTS = {"Adam": _ADAM, "AdamW": _ADAM, "AdamL2": _ADAM,
             "SGD": {"trace": "momentum_buffer"}, "RMSprop": {"nu": "nu"}}
 # the empty states optax chains after the first transform
 _EMPTY_TAIL = {"Adam": 1, "AdamW": 2, "SGD": 1, "RMSprop": 2}
@@ -263,8 +395,10 @@ def torch_to_flax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Mo
             t = state.get(key)
             _put(first.setdefault(optax_name, {}), path,
                  _to_flax(t if t is not None else torch.zeros_like(p), how))
-    if kind in ("Adam", "AdamW"):
+    if kind in ("Adam", "AdamW", "AdamL2"):
         first = {"count": np.asarray(count, np.int32), **first}
+    if kind == "AdamL2":  # add_decayed_weights (no state), then adam's own chain
+        return {"0": {}, "1": {"0": first, "1": {}}}
     return {"0": first, **{str(i + 1): {} for i in range(_EMPTY_TAIL[kind])}}
 
 
@@ -274,13 +408,13 @@ def flax_to_torch_opt_state(
     """Load an optax ``opt_state`` tree (the layout above) into
     ``optimizer``, whose parameters are ``model``'s; returns it."""
     kind = _opt_kind(optimizer)
-    first = opt_state["0"]
+    first = opt_state["1"]["0"] if kind == "AdamL2" else opt_state["0"]
     sd = optimizer.state_dict()
     sd["state"] = {}
     for i, p, _, path, how in _named_params(optimizer, model):
         state = {key: _to_torch(_get(first[optax_name], path), how).to(p.device)
                  for optax_name, key in _MOMENTS[kind].items()}
-        if kind in ("Adam", "AdamW"):
+        if kind in ("Adam", "AdamW", "AdamL2"):
             state["step"] = torch.tensor(float(np.asarray(first["count"])), dtype=torch.float32)
         sd["state"][i] = state
     optimizer.load_state_dict(sd)

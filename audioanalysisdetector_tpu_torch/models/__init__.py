@@ -1,5 +1,6 @@
 """Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
-classifier, the diagonal GMM (scoring, EM, MAP), and their LSTM layers."""
+classifier, the diagonal GMM (scoring, EM, MAP), their LSTM layers, the
+anti-spoofing ResNet family and MobileNetV2 + MFCA."""
 
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
@@ -19,13 +20,33 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 )
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM, LSTMLayer
+from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import (
+    MFCAModule,
+    MobileNetMFCA,
+    MobileNetV2Features,
+)
+from audioanalysisdetector_tpu_torch.models.resnet import (
+    AntiSpoofingResNet,
+    ExtractFeatureResidual,
+    MoreFeaturesClassifier,
+    ResidualBlock,
+    ResNetTrunk,
+)
 
 __all__ = [
+    "AntiSpoofingResNet",
     "BiLSTM",
     "BiLSTMClassifier",
     "CNNBiLSTMHybrid",
     "DiagGMM",
+    "ExtractFeatureResidual",
     "LSTMLayer",
+    "MFCAModule",
+    "MobileNetMFCA",
+    "MobileNetV2Features",
+    "MoreFeaturesClassifier",
+    "ResNetTrunk",
+    "ResidualBlock",
     "component_log_prob",
     "compute_llr",
     "fit_em",

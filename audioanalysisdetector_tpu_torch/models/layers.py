@@ -4,16 +4,21 @@
   ``1 - rate``, scale by ``1 / (1 - rate)``), its mask drawn from the
   ``torch.Generator`` the caller hands in, never from torch's global RNG. The
   masks cannot match JAX's draws; parity runs use rate 0.
-- ``FlaxBatchNorm1d``: ``nn.BatchNorm1d`` (same parameters, buffers and
-  state-dict keys) whose training-mode running variance follows flax: the
-  BIASED batch variance, where torch's own update takes the unbiased one;
-  with ``axis_name``, flax's sync-BN over a process group.
+  ``ChannelDropout`` is flax's ``nn.Dropout(broadcast_dims=(1, 2))`` on
+  channel-last maps: one mask entry per (sample, channel), here of
+  ``(B, C, H, W)`` maps.
+- ``FlaxBatchNorm1d`` / ``FlaxBatchNorm2d``: ``nn.BatchNorm1d`` /
+  ``nn.BatchNorm2d`` (same parameters, buffers and state-dict keys) whose
+  training-mode running variance follows flax: the BIASED batch variance,
+  where torch's own update takes the unbiased one; with ``axis_name``,
+  flax's sync-BN over a process group.
 - ``flax_init_``: parameters drawn from a generator with the distribution of
   the JAX package's ``model.init``: ``lecun_normal`` (a normal truncated at
-  two standard deviations, fan-in scaled) kernels and zero biases for Conv
-  and Dense, uniform in +-1/sqrt(H) for every LSTM tensor
-  (``models/lstm.py:32`` of the JAX package), norm layers at scale 1 and
-  bias 0, BatchNorm statistics at mean 0 and variance 1.
+  two standard deviations, fan-in scaled; a grouped convolution's fan-in is
+  ``kh * kw * in / groups``) kernels and zero biases for Conv and Dense,
+  uniform in +-1/sqrt(H) for every LSTM tensor (``models/lstm.py:32`` of the
+  JAX package), norm layers at scale 1 and bias 0, BatchNorm statistics at
+  mean 0 and variance 1.
 """
 
 from __future__ import annotations
@@ -41,15 +46,26 @@ class Dropout(nn.Module):
             )
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.rate
+        keep = torch.rand(self._mask_shape(x), generator=generator, device=x.device) < 1.0 - self.rate
         return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
+    def _mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return tuple(x.shape)
 
-class FlaxBatchNorm1d(nn.BatchNorm1d):
-    """``(B, C, L)`` BatchNorm: flax ``momentum=0.9`` is ``momentum=0.1`` here;
-    in training mode the running mean and variance move by ``momentum``
-    toward the batch mean and the biased batch variance over ``(B, L)``,
-    computed as flax computes it.
+
+class ChannelDropout(Dropout):
+    """Dropout of whole channels of ``(B, C, ...)`` maps: one mask entry per
+    (sample, channel), broadcast over the spatial axes."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return (*x.shape[:2], *(1,) * (x.dim() - 2))
+
+
+class _FlaxBatchNorm:
+    """flax's BatchNorm rule for ``(B, C, *spatial)``: flax ``momentum=0.9``
+    is ``momentum=0.1`` here; in training mode the running mean and variance
+    move by ``momentum`` toward the batch mean and the biased batch variance
+    over every axis but C, computed as flax computes it.
 
     ``axis_name`` is flax's sync-BN: in training mode the batch mean and
     mean of squares are averaged over the ranks of the process group bound
@@ -72,8 +88,9 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             # flax's (fast) biased variance, E[x^2] - E[x]^2 clipped at 0
-            mean = x.mean(dim=(0, 2))
-            var = (x * x).mean(dim=(0, 2)).sub_(mean * mean).clamp_(min=0.0)
+            dims = _reduce_dims(x)
+            mean = x.mean(dim=dims)
+            var = (x * x).mean(dim=dims).sub_(mean * mean).clamp_(min=0.0)
             self._update_running(mean, var)
         return out
 
@@ -81,11 +98,13 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         from audioanalysisdetector_tpu_torch.parallel.mesh import all_reduce_sum, axis_group
 
         group = axis_group(self.axis_name)
-        moments = torch.stack([x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))])
+        dims = _reduce_dims(x)
+        moments = torch.stack([x.mean(dim=dims), (x * x).mean(dim=dims)])
         mean, mean2 = all_reduce_sum(moments, group) / torch.distributed.get_world_size(group)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        out = (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        per_channel = (-1, *(1,) * (x.dim() - 2))
+        out = (x - mean.view(per_channel)) * mul.view(per_channel) + self.bias.view(per_channel)
         with torch.no_grad():
             self._update_running(mean, var)
         return out
@@ -94,6 +113,19 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         self.running_mean.lerp_(mean, self.momentum)
         self.running_var.lerp_(var, self.momentum)
         self.num_batches_tracked.add_(1)
+
+
+def _reduce_dims(x: torch.Tensor) -> tuple[int, ...]:
+    return (0, *range(2, x.dim()))
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """``(B, C, L)`` BatchNorm with flax's rule (``_FlaxBatchNorm``)."""
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """``(B, C, H, W)`` BatchNorm with flax's rule (``_FlaxBatchNorm``); the
+    ResNet builds it with eps 1e-5, MobileNet with 1e-3."""
 
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -107,7 +139,7 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv1d, nn.Linear)):
+            if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 std = mod.weight[0].numel() ** -0.5 / _TRUNC_STD
                 draw(mod.weight, lambda h: nn.init.trunc_normal_(
                     h, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
@@ -117,9 +149,9 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 b = mod.hidden_size**-0.5
                 for p in mod.parameters():
                     draw(p, lambda h: h.uniform_(-b, b, generator=generator))
-            elif isinstance(mod, (nn.BatchNorm1d, nn.LayerNorm)):
+            elif isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-                if isinstance(mod, nn.BatchNorm1d):
+                if isinstance(mod, nn.modules.batchnorm._BatchNorm):
                     mod.reset_running_stats()
     return model

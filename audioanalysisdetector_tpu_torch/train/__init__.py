@@ -1,8 +1,9 @@
 """Training subsystem (PyTorch port): losses, optimizers, state, steps,
 loops, checkpoints in the JAX package's format, metrics, the GMM-UBM
 system (training, loading, evaluation) and the surrogate quality lane
-(``train.quality``), and the data-parallel step over the ranks of a
-process group."""
+(``train.quality``), the data-parallel step over the ranks of a
+process group, and the ResNet sweep with the 3-feature and MobileNet-MFCA
+drivers (``train.sweep``)."""
 
 from audioanalysisdetector_tpu_torch.train.checkpoint import (
     MsgpackFormatError,
@@ -45,6 +46,12 @@ from audioanalysisdetector_tpu_torch.train.metrics import (
 )
 from audioanalysisdetector_tpu_torch.train.optimizers import OPTIMIZERS, make_optimizer
 from audioanalysisdetector_tpu_torch.train.state import TrainState, param_count
+from audioanalysisdetector_tpu_torch.train.sweep import (
+    train_3features,
+    train_all_features,
+    train_feature_model,
+    train_mfca,
+)
 from audioanalysisdetector_tpu_torch.train.steps import (
     make_dp_train_step,
     make_eval_step,
@@ -93,6 +100,10 @@ __all__ = [
     "save_params",
     "sequence_cmvn",
     "shard_batch",
+    "train_3features",
+    "train_all_features",
+    "train_feature_model",
     "train_gmm_system",
+    "train_mfca",
     "would_use_dp",
 ]

@@ -9,8 +9,9 @@ resumes, and the reverse; both packages' ``score --checkpoint`` read it.
 Reading and writing go through the port's own msgpack codec
 (``train/_msgpack.py``): neither ``msgpack`` nor ``flax`` is needed.
 
-The models: ``CNNBiLSTMHybrid`` (with its BatchNorm statistics) and
-``BiLSTMClassifier`` (an empty ``batch_stats``).
+The models: ``CNNBiLSTMHybrid``, ``AntiSpoofingResNet``,
+``MoreFeaturesClassifier`` and ``MobileNetMFCA`` (with their BatchNorm
+statistics), and ``BiLSTMClassifier`` (an empty ``batch_stats``).
 
 ``save_checkpoint_orbax`` / ``restore_checkpoint_orbax`` keep the JAX
 package's names for its sharding-aware backend, but write
@@ -28,6 +29,9 @@ import numpy as np
 import torch
 
 from audioanalysisdetector_tpu_torch.convert import (
+    MIRRORED,
+    _flax_to_torch_mirrored,
+    _torch_to_flax_mirrored,
     flax_to_torch_bilstm_classifier,
     flax_to_torch_cnn_bilstm,
     flax_to_torch_opt_state,
@@ -35,6 +39,7 @@ from audioanalysisdetector_tpu_torch.convert import (
     torch_to_flax_cnn_bilstm,
     torch_to_flax_opt_state,
 )
+from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.train._msgpack import MsgpackFormatError, msgpack_restore, to_bytes
 
@@ -50,22 +55,27 @@ __all__ = [
 ]
 
 
+def _converters(model: torch.nn.Module):
+    """(torch -> flax, flax -> torch) of the model's type."""
+    if isinstance(model, CNNBiLSTMHybrid):
+        return torch_to_flax_cnn_bilstm, flax_to_torch_cnn_bilstm
+    if isinstance(model, BiLSTMClassifier):
+        return (lambda sd: {**torch_to_flax_bilstm_classifier(sd), "batch_stats": {}},
+                flax_to_torch_bilstm_classifier)
+    if isinstance(model, MIRRORED):
+        return _torch_to_flax_mirrored, _flax_to_torch_mirrored
+    raise TypeError(f"no checkpoint layout for {type(model).__name__}")
+
+
 def _variables(model: torch.nn.Module) -> dict:
     """The model's ``{"params", "batch_stats"}`` in the flax layout."""
-    sd = model.state_dict()
-    if isinstance(model, CNNBiLSTMHybrid):
-        return torch_to_flax_cnn_bilstm(sd)
-    return {**torch_to_flax_bilstm_classifier(sd), "batch_stats": {}}
+    return _converters(model)[0](model.state_dict())
 
 
 def _load_variables(model: torch.nn.Module, variables: dict, *, strict: bool = True) -> None:
     """Load flax-layout variables into ``model`` (shapes must fit: a wrong
     one raises, as flax's restore into a template does)."""
-    if isinstance(model, CNNBiLSTMHybrid):
-        sd = flax_to_torch_cnn_bilstm(variables)
-    else:
-        sd = flax_to_torch_bilstm_classifier(variables)
-    model.load_state_dict(sd, strict=strict)
+    model.load_state_dict(_converters(model)[1](variables), strict=strict)
 
 
 def _host(tree):

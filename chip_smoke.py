@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features, multi.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features, multi, models and XAI.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -108,7 +108,22 @@ each print their lines:
     at the fused scorer's widths against ``masked_llr``; (d)
     ``dryrun_multichip(1)``; (e) (b) and (c) on 2 gloo ranks sharing the
     card, or a line saying why they did not run;
-14. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+14. models-xai: (a) ``AntiSpoofingResNet``, ``MoreFeaturesClassifier`` (on
+    the CQCC, GFCC and MFCC of the batch) and ``MobileNetMFCA`` at their
+    published widths on 256 utterances' features made on the card (log-mel
+    and MFCC through K3): eval logits against the CPU's, one train step's
+    loss and BatchNorm statistics against the CPU's (dropout 0), ms per
+    forward and per step at batch 256, the kernels a step launches; (b)
+    saliency, IG (20 steps), occlusion with the (1, 5) window (3776
+    windows; the CPU recomputes three rows of the map), Grad-CAM and LIME
+    (30 perturbations) of the ResNet on one utterance's log-mel, and
+    ``compare_gmm_bilstm`` at the fused widths (its IG through cuDNN's LSTM
+    backward), each against the CPU, with ms; (c) the ``xai`` CLI (all
+    five methods, ``--html``) on a WAV made on the card, ``train-mfca`` and
+    ``train-3features`` for 2 epochs over 16 WAVs, each best checkpoint
+    scored on the card against the CPU, K3's launches counted. No TPU
+    kernel is on these paths but K3: cuDNN and autograd;
+15. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -144,9 +159,13 @@ import torch
 from audioanalysisdetector_tpu_torch.convert import (
     flax_to_torch_bilstm_classifier,
     flax_to_torch_cnn_bilstm,
+    flax_to_torch_resnet,
     random_diag_gmm,
     random_flax_bilstm_classifier,
     random_flax_cnn_bilstm,
+    random_flax_mobilenet_mfca,
+    random_flax_more_features,
+    random_flax_resnet,
 )
 from audioanalysisdetector_tpu_torch.data.scaler import FrameScaler
 from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc, transpose_cqcc
@@ -187,6 +206,8 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
     to_numpy,
 )
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
+from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
+from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
@@ -207,6 +228,7 @@ from audioanalysisdetector_tpu_torch.train import (
     make_optimizer,
     make_train_step,
 )
+from audioanalysisdetector_tpu_torch.train.checkpoint import load_payload
 from audioanalysisdetector_tpu_torch.train.gmm_system import eval_model, make_gmm_feature_fn, train_gmm_system
 from audioanalysisdetector_tpu_torch.train.steps import make_dp_train_step, shard_batch
 from audioanalysisdetector_tpu_torch.serve.multiproc import MultiprocessServer
@@ -2179,6 +2201,315 @@ def phase_multi() -> dict:
     return {"ct_mel": launches}
 
 
+# Phase 14, card against CPU from the same converted weights (first-run
+# bands, each reading kept in PERF.md): eval logits relative to the largest
+# logit and a train step's loss relative to itself, fp32 convolutions
+# (cuDNN, TF32 off, against oneDNN) summed in other orders through 13-52
+# layers (the CPU tests read 2.3e-5 between the port in fp32 and float64
+# on MobileNet); the BatchNorm running statistics after that one step
+# relative to each layer's largest entry (the flax-rule variance
+# E[x^2] - E[x]^2 cancels in fp32, TRAIN_BN_RTOL's reasoning)
+MODEL_RTOL = 1e-4
+MODEL_BN_RTOL = 2e-3
+# attribution maps relative to each map's largest entry: gradients and
+# score drops of those fp32 logits (the CPU tests hold the port to JAX at
+# 1e-4 on ResNet maps); LIME's surrogate coefficients relative to the
+# largest, from the same masks (one CPU generator) and scores ~1e-6 apart
+XAI_RTOL = 1e-3
+# integrated gradients sum gradients at 20 scaled copies of the input, and
+# where a unit's pre-activation falls within rounding of LeakyReLU's kink
+# the two devices take different slopes there: the CPU alone, in float32
+# against float64, reads 4.1e-3 of the map's largest entry on 47 of 4032
+# cells of one utterance in four (3e-7 on the others), an H100 against the
+# CPU 7.8e-3. So IG is held by the L2 norm of the difference relative to
+# the map's (CPU, float32 against float64: 1.1e-3 on that utterance)
+IG_L2_RTOL = 1e-2
+# the CLIs' best checkpoints scored on the card and on the CPU, the same
+# features: logits relative to the largest
+CLI_SCORE_RTOL = 1e-4
+MODEL_BATCH, MODEL_CPU_ROWS, MODEL_STEP_ROWS = 256, 64, 32
+XAI_IG_STEPS, XAI_LIME = 20, 30
+OCC_CHECK_ROWS = (0, 31, 63)  # mel rows of the occlusion map the CPU recomputes
+
+
+def model_zoo() -> dict:
+    """name -> (constructor from the converted random weights, input builder
+    from the phase's features). Dropout rates are set to 0 in place, so card
+    and CPU steps take the same path."""
+    from audioanalysisdetector_tpu_torch.models.layers import Dropout
+
+    def build(cls, variables):
+        def make():
+            m = cls()
+            m.load_state_dict(flax_to_torch_resnet(variables))  # the rule of all three 2-D models
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.rate = 0.0
+            return m
+        return make
+
+    return {
+        "resnet": (build(AntiSpoofingResNet, random_flax_resnet(140)), lambda f: (f["logmel"],)),
+        "more_features": (build(MoreFeaturesClassifier, random_flax_more_features(141)),
+                          lambda f: (f["cqcc"], f["gfcc"], f["mfcc"])),
+        "mobilenet_mfca": (build(MobileNetMFCA, random_flax_mobilenet_mfca(142)), lambda f: (f["logmel"],)),
+    }
+
+
+def model_features(wav: torch.Tensor) -> tuple[dict, int]:
+    """Log-mel at 64 mels (K3), CQCC, GFCC and MFCC (128 mels, K3) of the
+    batch on the card, as ``train-mfca`` / ``train-3features`` make them;
+    returns them and K3's launches."""
+    from audioanalysisdetector_tpu_torch.frontend.cepstral import CepstralConfig, gfcc
+    from audioanalysisdetector_tpu_torch.frontend.mfcc import mfcc
+
+    def features():
+        with torch.no_grad():
+            return {"logmel": log_mel_spectrogram(wav, MelConfig(sr=SR, n_mels=64)),
+                    "cqcc": cqcc(wav, CQCCConfig.for_sr(SR)),
+                    "gfcc": gfcc(wav, CepstralConfig(fs=SR, nfilts=40, fb_kind="gammatone")),
+                    "mfcc": mfcc(wav, MFCCConfig.for_sr(SR))}
+
+    feats, counts = run_counted(features)
+    n = expect_launched(counts, "ct_mel", "model features")
+    for k, f in feats.items():
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"model features: {k} not finite")
+    return feats, n
+
+
+def model_card_vs_cpu(name: str, make, inputs: tuple, y: torch.Tensor) -> dict:
+    """Eval logits at MODEL_BATCH on the card against the CPU's first
+    MODEL_CPU_ROWS rows; one train step (the sweep's Adam) on MODEL_STEP_ROWS
+    rows on both: loss and every BatchNorm's running statistics; ms per
+    forward and per step at MODEL_BATCH (CUDA events) with the kernels one
+    step launches (``device_breakdown``)."""
+    card, host = make().to(DEVICE).eval(), make().eval()
+    with torch.no_grad():
+        logits = card(*inputs)
+        ref = host(*(x[:MODEL_CPU_ROWS].cpu() for x in inputs))
+    if logits.shape != (MODEL_BATCH, 2) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} or non-finite")
+    fwd_rel = float((logits[:MODEL_CPU_ROWS].cpu() - ref).abs().max() / ref.abs().max())
+    losses, stats = [], []
+    for model in (make().to(DEVICE), make()):
+        device = next(model.parameters()).device
+        state = TrainState.create(model=model, tx=make_optimizer("Adam", 1e-4))
+        step = make_train_step(get_loss("CrossEntropyLoss"))
+        rows = tuple(x[:MODEL_STEP_ROWS].to(device) for x in inputs)
+        state, m = step(state, rows if len(rows) > 1 else rows[0], y[:MODEL_STEP_ROWS].to(device),
+                        torch.Generator(device=device))
+        losses.append(float(m["loss"]))
+        stats.append({k: t.cpu() for k, t in model.state_dict().items() if "running_" in k})
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    bn_rel = max(float((stats[0][k] - t).abs().max() / t.abs().max().clamp_min(1e-30)) for k, t in stats[1].items())
+    # timing at MODEL_BATCH on the card
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: card(*inputs), 10)
+    state = TrainState.create(model=make().to(DEVICE), tx=make_optimizer("Adam", 1e-4))
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    xs = inputs if len(inputs) > 1 else inputs[0]
+    for _ in range(2):
+        step(state, xs, y, g)
+    step_ms = cuda_ms(lambda: step(state, xs, y, g), 10)
+    wall, busy, ranked = device_breakdown(lambda: step(state, xs, y, g), iters=3, top=10**6)
+    out = {"fwd_rel_diff": fwd_rel, "loss_rel_diff": loss_rel, "bn_rel_diff": bn_rel, "fwd_ms": fwd_ms,
+           "step_ms": step_ms, "step_launches": sum(n for _, n, _ in ranked), "busy_share": busy / wall}
+    log("models", model=name, batch=MODEL_BATCH, inputs=",".join(str(tuple(x.shape[1:])) for x in inputs),
+        params=sum(p.numel() for p in card.parameters()), loss=f"{losses[0]:.6f}",
+        **{k: (f"{v:.3e}" if "rel" in k else f"{v:.3f}" if isinstance(v, float) else v) for k, v in out.items()},
+        utt_per_s_train=f"{MODEL_BATCH / step_ms * 1e3:.1f}")
+    for k_ms, k_n, k_name in ranked[:6]:
+        print(f"  {k_ms:8.3f} ms  x{k_n}  {k_name[:100]}", flush=True)
+    if fwd_rel > MODEL_RTOL or loss_rel > MODEL_RTOL or bn_rel > MODEL_BN_RTOL:
+        raise AssertionError(f"{name}: card vs CPU logits {fwd_rel:.3e}, loss {loss_rel:.3e}, BN {bn_rel:.3e}")
+    return out
+
+
+def xai_card_vs_cpu(feats: dict) -> dict:
+    """Saliency, IG, occlusion (1, 5), Grad-CAM and LIME of the ResNet on
+    one utterance's log-mel, card against CPU; ms each on the card."""
+    from audioanalysisdetector_tpu_torch import xai
+
+    make = model_zoo()["resnet"][0]
+    card, host = make().to(DEVICE).eval(), make().eval()
+    x = feats["logmel"][:1].contiguous()
+    xc = x.cpu()
+    T = x.shape[-1]
+
+    def scorer_of(m):
+        return torch.no_grad()(lambda b: torch.softmax(m(b), dim=-1)[:, 1])
+
+    methods = {
+        "saliency": lambda m, v: xai.saliency(m, v),
+        "integrated_gradients": lambda m, v: xai.integrated_gradients(m, v, steps=XAI_IG_STEPS),
+        "grad_cam": lambda m, v: xai.grad_cam(m, v, output_size=tuple(v.shape[-2:])),
+        "lime": lambda m, v: torch.from_numpy(
+            xai.lime_single_instance(scorer_of(m), v[0], n_perturbations=XAI_LIME)["coefficients"]),
+    }
+    out = {}
+    for name, fn in methods.items():
+        got = fn(card, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(card, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = fn(host, xc).double()
+        diff = got.cpu().double() - ref
+        rel = float(diff.abs().max() / ref.abs().max().clamp_min(1e-30))
+        rel_l2 = float(diff.norm() / ref.norm().clamp_min(1e-30))
+        out[name] = {"rel_diff": rel, "rel_l2": rel_l2, "ms": ms}
+        log("xai", method=name, shape=tuple(got.shape), ms=f"{ms:.1f}", rel_diff=f"{rel:.3e}", rel_l2=f"{rel_l2:.3e}")
+        ok = rel_l2 <= IG_L2_RTOL if name == "integrated_gradients" else rel <= XAI_RTOL
+        if not ok:
+            raise AssertionError(f"xai {name}: card vs CPU max {rel:.3e}, L2 {rel_l2:.3e}")
+    # occlusion: the full map on the card (64 x 59 positions); the CPU
+    # recomputes its rows OCC_CHECK_ROWS from those rows' windows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ = xai.occlusion(card, x, window=(1, 5))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n_pos = (x.shape[1]) * (T - 5 + 1)
+    with torch.no_grad():
+        base = host(xc)[0, 1]
+        rows = []
+        for r in OCC_CHECK_ROWS:
+            occ_in = xc.repeat(T - 4, 1, 1)
+            for f0 in range(T - 4):
+                occ_in[f0, r, f0 : f0 + 5] = 0.0
+            drops = (base - host(occ_in)[:, 1])[None, None, None]  # (1, 1, 1, n_f)
+            heat = torch.nn.functional.conv2d(drops, torch.ones(1, 1, 1, 5), padding=(0, 4))[0, 0, 0]
+            counts = torch.nn.functional.conv2d(torch.ones(1, 1, 1, T - 4), torch.ones(1, 1, 1, 5), padding=(0, 4))
+            rows.append(heat / counts[0, 0, 0])
+    ref = torch.stack(rows)
+    got = occ[0, list(OCC_CHECK_ROWS)].cpu()
+    rel = float((got - ref).abs().max() / occ.abs().max().cpu())
+    out["occlusion"] = {"rel_diff": rel, "ms": ms}
+    log("xai", method="occlusion", window="1x5", positions=n_pos, ms=f"{ms:.1f}", rows_checked=len(OCC_CHECK_ROWS),
+        rel_diff=f"{rel:.3e}")
+    if not rel <= XAI_RTOL:
+        raise AssertionError(f"xai occlusion: card vs CPU rows {rel:.3e} > {XAI_RTOL}")
+    return out
+
+
+def xai_compare_card_vs_cpu() -> dict:
+    """``compare_gmm_bilstm`` at the fused widths (BiLSTM hidden 128, two
+    128-component GMMs, T 63, F 19) on the card and on the CPU: its IG runs
+    the gradient through cuDNN's LSTM (its LSTMs in training mode)."""
+    from audioanalysisdetector_tpu_torch import xai
+
+    v = random_flax_bilstm_classifier(143, 128, 19)
+    gmms = [random_diag_gmm(144 + i, GMM_K, 19) for i in range(2)]
+    x = np.random.default_rng(146).standard_normal((63, 19)).astype(np.float32)
+    outs, ms = [], 0.0
+    for device in (DEVICE, "cpu"):
+        m = BiLSTMClassifier(hidden=128, input_dim=19)
+        m.load_state_dict(flax_to_torch_bilstm_classifier(v))
+        m = m.to(device).eval()
+        g1, g2 = (from_numpy(g, device=device) for g in gmms)
+
+        def gmm_score(batch, g1=g1, g2=g2):
+            with torch.no_grad():
+                return torch.sigmoid(masked_llr(batch, torch.ones(batch.shape[:-1], dtype=torch.bool,
+                                                                  device=batch.device), g1, g2))
+
+        t0 = time.perf_counter()
+        outs.append(xai.compare_gmm_bilstm(x, bilstm_model=m, gmm_score_fn=gmm_score))
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        if m.training or any(mod.training for mod in m.modules()):
+            raise AssertionError("compare_gmm_bilstm left a module in training mode")
+    rel = {}
+    for part in ("heatmaps", "importance"):
+        for k, ref in outs[1][part].items():
+            got = outs[0][part][k]
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                raise AssertionError(f"compare {k}: shape {got.shape} vs {ref.shape} or non-finite")
+            rel[k] = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+    log("xai", method="compare_gmm_bilstm", hidden=128, components=GMM_K, frames=63, dims=19, ms=f"{ms:.1f}",
+        **{f"{k}_rel_diff": f"{r:.3e}" for k, r in rel.items()})
+    if max(rel.values()) > XAI_RTOL:
+        raise AssertionError(f"compare_gmm_bilstm: card vs CPU {rel}")
+    return {"ms": ms, "rel_diff": max(rel.values())}
+
+
+def models_cli(d: str) -> int:
+    """``xai`` (all five methods, ``--html``) over a WAV made on the card,
+    then ``train-mfca`` and ``train-3features`` for 2 epochs over 16 labelled
+    WAVs, in this process on the card; each best checkpoint scored on the
+    card and on the CPU. Returns K3's launches of the three commands."""
+    wav, y = train_corpus(16, 147)
+    audio = os.path.join(d, "corpus")
+    paths = []
+    for i, (row, label) in enumerate(zip(wav.cpu().numpy(), y.tolist())):
+        paths.append(os.path.join(audio, "spoof" if label else "bonafide", f"u{i:02d}.wav"))
+        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+        write_wav(paths[-1], np.clip(row, -0.999, 0.999), SR)
+    launches = 0
+    one = paths[0]
+    t0 = time.perf_counter()
+    stdout, counts = run_counted(lambda: cli_main_quiet(
+        ["xai", one, "--device", DEVICE, "--methods", "saliency,gradcam,ig,occlusion,lime", "--html",
+         "--output-dir", os.path.join(d, "xai_out")]))
+    launches += expect_launched(counts, "ct_mel", "xai CLI")
+    lime = json.loads(stdout.strip().splitlines()[0])
+    cpu_lime = json.loads(cli_main_quiet(["xai", one, "--device", "cpu", "--methods", "lime",
+                                          "--output-dir", os.path.join(d, "xai_cpu")]).strip().splitlines()[0])
+    lime_rel = abs(lime["lime_score"] - cpu_lime["lime_score"]) / abs(cpu_lime["lime_score"])
+    log("models-cli", command="xai", wall_s=f"{time.perf_counter() - t0:.1f}", launches=counts["ct_mel"],
+        outputs=",".join(sorted(os.listdir(os.path.join(d, "xai_out")))), lime_score=f"{lime['lime_score']:.6f}",
+        lime_score_rel_diff_vs_cpu=f"{lime_rel:.3e}",
+        top_components=",".join(map(str, lime["lime_top_components"])))
+    if lime_rel > CLI_SCORE_RTOL or len(lime["lime_top_components"]) != 5:
+        raise AssertionError(f"xai CLI: card {lime} vs CPU {cpu_lime}")
+    feats, _ = model_features(wav)
+    for command, model_cls, take in (("train-mfca", MobileNetMFCA, ("logmel",)),
+                                     ("train-3features", MoreFeaturesClassifier, ("cqcc", "gfcc", "mfcc"))):
+        run = os.path.join(d, command)
+        t0 = time.perf_counter()
+        stdout, counts = run_counted(lambda: cli_main_quiet(
+            [command, audio, "--device", DEVICE, "--epochs", "2", "--batch-size", "4", "--run-dir", run]))
+        launches += expect_launched(counts, "ct_mel", f"{command} CLI")
+        metrics = json.loads(stdout.strip().splitlines()[-1])
+        scores = []
+        payload = load_payload(os.path.join(run, "best_model.msgpack"))
+        for device in (DEVICE, "cpu"):
+            model = model_cls()
+            model.load_state_dict(flax_to_torch_resnet({"params": payload["params"], "batch_stats": payload["batch_stats"]}))
+            with torch.no_grad():
+                scores.append(model.to(device).eval()(*(feats[k].to(device) for k in take)).cpu())
+        rel = float((scores[0] - scores[1]).abs().max() / scores[1].abs().max())
+        log("models-cli", command=command, wall_s=f"{time.perf_counter() - t0:.1f}", launches=counts["ct_mel"],
+            eer=f"{metrics['eer']:.4f}", accuracy=f"{metrics['accuracy']:.4f}", best_scores_rel_diff_vs_cpu=f"{rel:.3e}",
+            run_files=",".join(sorted(os.listdir(run))))
+        if rel > CLI_SCORE_RTOL or not np.isfinite(list(metrics.values())).all():
+            raise AssertionError(f"{command} CLI: best checkpoint card vs CPU {rel:.3e}, metrics {metrics}")
+    return launches
+
+
+def phase_models_xai() -> dict:
+    """Phase 14; returns K3's launches of its paths (the models' features
+    and the three CLIs)."""
+    wav, y = train_corpus(MODEL_BATCH, 148)
+    feats, launches = model_features(wav)
+    log("models", rows=MODEL_BATCH, ct_mel_launches=launches,
+        **{k: tuple(f.shape[1:]) for k, f in feats.items()})
+    out = {}
+    for name, (make, inputs) in model_zoo().items():
+        out[name] = model_card_vs_cpu(name, make, inputs(feats), y)
+    out["xai"] = xai_card_vs_cpu(feats)
+    out["compare"] = xai_compare_card_vs_cpu()
+    del wav, feats
+    free()
+    with tempfile.TemporaryDirectory() as d:
+        launches += models_cli(d)
+    return {"ct_mel": launches, **out}
+
+
 def timed_phase(phase):
     """``phase()``, with its wall printed after it."""
     t0 = time.perf_counter()
@@ -2203,6 +2534,7 @@ def main() -> int:
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
     launches["ct_mel"] += timed_phase(phase_multi)["ct_mel"]
+    launches["ct_mel"] += timed_phase(phase_models_xai)["ct_mel"]
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],
