@@ -11,6 +11,8 @@
   train-3features  shared-trunk (cqcc, gtcc, mfcc) fusion net (notebook cells 32-33)
   train-mfca     MobileNetV2+MFCA on log-mel (notebook cells 29-31)
   xai            attribution heatmaps (saliency, Grad-CAM, IG, occlusion, LIME) for one WAV
+  gridsearch     classical SVM / gradient-boosting sweep over feature sets, reducers, components
+  classical      metadata-driven classical pipeline: 6 features -> expand -> PCA+SVC / PCA+HGB grids
 
 The flags are those of the JAX package's commands, plus ``--device``.
 ``serve --data-parallel`` splits each dispatch over the local cards;
@@ -606,6 +608,96 @@ def cmd_augment(args) -> int:
     return 0
 
 
+def cmd_classical(args) -> int:
+    """Metadata-driven classical-ML end-to-end (reference/train_fun.py:305-403):
+    sample caps, 6-feature extraction incl. formants, dict expansion,
+    PCA+SVC / PCA+HGB grids with the pipeline cache, on ``--device``. The
+    result is one JSON line; the kernel launch counts go to stderr."""
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.train.classical import classical_main
+
+    all_data = {}
+    if args.config:
+        # reference-style config.yaml: datasets.{KEY}.{metadata, flac}
+        # (reference/train_fun.py:30-44; schema in io/config.py)
+        from audioanalysisdetector_tpu_torch.io.config import load_config
+
+        cfg = load_config(args.config)
+        for key, block in cfg.get("datasets", {}).items():
+            flac = block["flac"]
+            all_data[key] = {
+                "metadata": block["metadata"],
+                "flac": list(flac) if isinstance(flac, list) else [flac],
+            }
+    for spec in args.dataset or []:
+        try:
+            key, metadata, audio_dir = spec.split(":", 2)
+        except ValueError:
+            print(f"bad --dataset spec {spec!r}; use KEY:METADATA:AUDIO_DIR", file=sys.stderr)
+            return 2
+        entry = all_data.setdefault(key, {"metadata": metadata, "flac": []})
+        entry["flac"].append(audio_dir)
+    if not all_data:
+        print("classical: provide --dataset specs and/or --config", file=sys.stderr)
+        return 2
+    features = tuple(f.strip() for f in args.features.split(",") if f.strip())
+    try:
+        out = classical_main(
+            all_data,
+            sr=args.sr,
+            seconds=args.seconds,
+            features=features,
+            pca_components=tuple(int(c) for c in args.components.split(",") if c.strip()),
+            extension=args.extension,
+            cache_dir=args.cache_dir,
+            seed=args.seed,
+            device=args.device,
+        )
+    except ValueError as e:
+        print(f"classical: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(out))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def cmd_gridsearch(args) -> int:
+    """Extract the features of labelled files on ``--device``, expand them,
+    split 80/20 and run ``run_extensive_gridsearch`` (its CSVs under
+    ``--output-dir``); print the top rows, one JSON line each. The kernel
+    launch counts go to stderr."""
+    from audioanalysisdetector_tpu_torch.data.pipeline import extract_features
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.train.classical import (
+        expand_feature_columns,
+        run_extensive_gridsearch,
+    )
+
+    paths = _collect_wavs(args.audio)
+    if len(paths) < 10:
+        print("need at least 10 labeled WAVs", file=sys.stderr)
+        return 1
+    paths = _shuffle(paths, args.seed)
+    features = [f.strip() for f in args.features.split(",") if f.strip()]
+    components = tuple(int(c) for c in args.components.split(",") if c.strip())
+    rows = [{"file_path": p, "label": int(lab), "chunk_start": 0.0, "chunk_end": args.seconds}
+            for p, lab in zip(paths, _labels_from_dirnames(paths))]
+    rows = extract_features(rows, features, sr=args.sr, mean=True, device=args.device)
+    expanded = expand_feature_columns(rows, features, "label")
+    columns = list(expanded[0]) if expanded else []
+    groups = {f: [c for c in columns if c == f or c.startswith(f + "_")] for f in features}
+    split = int(len(expanded) * 0.8)
+    _, full = run_extensive_gridsearch(
+        expanded[:split], expanded[split:], feature_groups=groups,
+        components=components, out_dir=args.output_dir,
+        cache_dir=args.cache_dir, device=args.device,
+    )
+    for row in (full or [])[: args.top_k]:
+        print(json.dumps(row, default=str))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
 _DATA_PARALLEL = {"auto": None, "on": True, "off": False}
 
 
@@ -976,6 +1068,50 @@ def build_parser() -> argparse.ArgumentParser:
         "front of one card-owner process (1: single process)",
     )
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("gridsearch", help="classical SVM / gradient-boosting sweep")
+    clip_flags(sp)
+    sp.add_argument("--output-dir", default="gridsearch_results")
+    sp.add_argument("--top-k", type=int, default=5)
+    sp.add_argument(
+        "--features", default="wpt,mfcc,lfcc",
+        help="comma list of extractors swept as feature sets; 'formants' "
+        "adds the Burg-LPC prosodic dict (reference: 6 features)",
+    )
+    sp.add_argument(
+        "--components", default="10,20,30,40",
+        help="comma list of PCA/ICA component counts (the reference's space)",
+    )
+    sp.add_argument(
+        "--cache-dir", default=None,
+        help="directory caching fitted pipeline prefixes across the sweep",
+    )
+    sp.set_defaults(fn=cmd_gridsearch)
+
+    sp = sub.add_parser(
+        "classical",
+        help="metadata-driven classical pipeline: 6 features incl. formants "
+        "-> expand -> PCA+SVC / PCA+HGB grids (reference train_fun.main)",
+    )
+    sp.add_argument(
+        "--dataset", action="append", default=None, metavar="KEY:METADATA:AUDIO_DIR",
+        help="repeatable; KEY picks the sample cap (LA 5000, others 2500)",
+    )
+    sp.add_argument(
+        "--config", default=None,
+        help="reference-style config.yaml with a datasets.{KEY}.{metadata,"
+        "flac} block (merged with --dataset specs)",
+    )
+    sp.add_argument("--sr", type=int, default=16000)
+    sp.add_argument("--seconds", type=float, default=4.0,
+                    help="fixed analysis window (see classical_main)")
+    sp.add_argument("--features", default=",".join(("mfcc", "lfcc", "cqcc", "gtcc", "wpt", "formants")))
+    sp.add_argument("--components", default="10,20,30,40")
+    sp.add_argument("--extension", default=".flac")
+    sp.add_argument("--cache-dir", default=None)
+    sp.add_argument("--seed", type=int, default=42)
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_classical)
     return p
 
 

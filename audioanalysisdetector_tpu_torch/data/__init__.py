@@ -39,8 +39,16 @@ from audioanalysisdetector_tpu_torch.data.pipeline import (
     extract_feature_array,
     extract_features,
 )
-from audioanalysisdetector_tpu_torch.data.scaler import FrameScaler, prepare_train_test_data
-from audioanalysisdetector_tpu_torch.data.shape_utils import prepare_data_gmm_bilstm
+from audioanalysisdetector_tpu_torch.data.scaler import (
+    FrameScaler,
+    prepare_train_test_data,
+    prepare_train_test_data_multi,
+)
+from audioanalysisdetector_tpu_torch.data.shape_utils import (
+    build_X_from_df,
+    prepare_data_gmm_bilstm,
+    to_array_safe,
+)
 
 __all__ = [
     "AUG_CODES",
@@ -51,6 +59,7 @@ __all__ = [
     "balance_downsample",
     "balance_upsample",
     "bucket_for",
+    "build_X_from_df",
     "bucketed_batches",
     "chunk_rows",
     "default_extractors",
@@ -65,9 +74,11 @@ __all__ = [
     "prepare_dirs_dataset",
     "prepare_filepaths",
     "prepare_train_test_data",
+    "prepare_train_test_data_multi",
     "read_metadata",
     "resample_to",
     "spec_augment",
     "time_shift",
     "time_stretch",
+    "to_array_safe",
 ]

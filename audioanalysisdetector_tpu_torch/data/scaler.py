@@ -5,11 +5,14 @@ Counterpart of the JAX package's ``data/scaler.py`` (the reference fits
 reference/ASV_dl_func.py:1113-1129): two numpy arrays, the mean and std
 over the coefficient axis, fitted on the host and applied to tensors on
 any device; persistence is npz (no pickle), the same files as the JAX
-package's.
+package's. ``prepare_train_test_data_multi`` scales each feature's cells
+of a row list with its own scaler, on the host in numpy as the JAX
+package does.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,3 +74,30 @@ def prepare_train_test_data(
     if scaler_path:
         scaler.save(scaler_path)
     return tr, te, scaler
+
+
+def prepare_train_test_data_multi(
+    train_rows: list[dict],
+    test_rows: list[dict],
+    feature_cols: list[str],
+    *,
+    model_dir: str | None = None,
+) -> tuple[list[dict], list[dict], dict[str, FrameScaler]]:
+    """Per-feature scalers over row cells (the reference's
+    ``prepare_train_test_data_multi``, reference/ASV_dl_func.py:1090-1110):
+    fit each feature's scaler on the vstack of its train cells, scale both
+    splits' cells (new rows; the inputs stay as they were), keep one
+    ``{col}_scaler.npz`` per feature under ``model_dir``."""
+    train_rows = [dict(r) for r in train_rows]
+    test_rows = [dict(r) for r in test_rows]
+    scalers: dict[str, FrameScaler] = {}
+    for col in feature_cols:
+        scaler = FrameScaler.fit(np.vstack([np.asarray(r[col]) for r in train_rows]))
+        for rows in (train_rows, test_rows):
+            for r in rows:
+                r[col] = (np.asarray(r[col]) - scaler.mean) / scaler.std
+        if model_dir:
+            os.makedirs(model_dir, exist_ok=True)
+            scaler.save(os.path.join(model_dir, f"{col}_scaler.npz"))
+        scalers[col] = scaler
+    return train_rows, test_rows, scalers

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features, multi, models and XAI.
+"""Card check of the PyTorch port: build, kernels vs plain, e2e, serving, CLI, training, features, multi, models and XAI, classical ML.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -123,7 +123,22 @@ each print their lines:
     ``train-3features`` for 2 epochs over 16 WAVs, each best checkpoint
     scored on the card against the CPU, K3's launches counted. No TPU
     kernel is on these paths but K3: cuDNN and autograd;
-15. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
+15. classical: (a) ``StandardScaler``, ``PCA(40)``, ``FastICA(40)``, ``SVC``
+    (rbf, C 1 and 10, on the 40 PCA components) and the gradient-boosted
+    trees (100 iterations, depth 5) of ``ml/`` at ``classical_main``'s fold
+    scale (4,800 x 76 seeded features), each on the card against the port
+    on the CPU, with ms per fit, SMO steps, trees and leaves; (b)
+    and SMO's eager loop against its CUDA graph from 16 rows to 4,800;
+    (b) ``classical_main``'s two grids (``train.classical.svm_grid``,
+    ``xgb_grid``; cv=3) on 7,200 balanced rows cut to one candidate each,
+    seconds per grid and the best parameters; (c)
+    the ``classical`` and ``gridsearch`` CLIs over a small surrogate corpus
+    on the card, their accuracies, best parameters and CSV equal to the
+    same commands' with ``--device cpu``, K3's launches (their MFCC at 128
+    mels) counted; (d) ``utils.StepTimer`` and ``profile_fn`` around a K3
+    call and a ``device_trace`` file. No TPU kernel is on this path (the
+    JAX package runs scikit-learn on the host): plain PyTorch;
+16. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
 before it and read just after (``run_counted``); a phase fails when the
@@ -2510,6 +2525,295 @@ def phase_models_xai() -> dict:
     return {"ct_mel": launches, **out}
 
 
+# Phase 15: the classical-ML path. Fold scale of classical_main at the
+# reference's cap (LA 5000 files: 4,000 train rows, ~7,200 once balanced,
+# cv=3), over 76 columns (the expanded widths of its six features).
+CLASSICAL_ROWS, CLASSICAL_COLS, GRID_ROWS, CLASSICAL_TEST = 4800, 76, 7200, 1000
+# Card against the port on the host's CPU. The bounds of the CPU tests
+# against sklearn (tests/test_torch_ml.py): standardized values absolute;
+# PCA transforms relative to their largest entry (float64 eigh or SVD on
+# cuSOLVER against LAPACK); FastICA sources absolute, the same n_iter_;
+# HGB probabilities absolute (float64 histogram sums taken in another
+# order by the card's atomics), the same tree and leaf counts. SVC is held
+# tighter than its test against libsvm (2e-3, libsvm's slack at tol 1e-3):
+# both devices run the same SMO path, so they must take the same steps to
+# the same support vectors, and their decision values (6.3e-13 apart at
+# C=10 on an H100) must agree to rounding; a step taken differently moves
+# them by up to the 1e-5 stop
+SCALER_TOL, PCA_RTOL, ICA_TOL, SVC_TOL, HGB_TOL = 1e-12, 1e-9, 1e-6, 1e-8, 1e-6
+# (b) times one candidate of each grid: the full grids take 78.9 + 45.5 s
+# on an H100 (PERF.md), past the script's share; empty an arm's to run it
+GRID_CANDIDATE = {"svm": dict(pca_components=(40,), svm_c=(1,)),
+                  "xgb": dict(pca_components=(40,), n_estimators=(100,), max_depth=(3,))}
+# SMO's two loops on the card (ml/svm.py: eager blocks, or blocks recorded
+# as a CUDA graph) timed at the gridsearch CLI's fit size up to the fold's
+SMO_PATH_ROWS = (16, 256, 4800)
+
+
+def classical_data(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n, 76) float64 features and 0/1 labels: Laplace sources (so ICA has
+    non-Gaussian structure to find) through a fixed mixing, the label a
+    noisy nonlinear function of four sources."""
+    mixing = np.random.default_rng(150).standard_normal((CLASSICAL_COLS, CLASSICAL_COLS)) / np.sqrt(CLASSICAL_COLS)
+    rng = np.random.default_rng(seed)
+    S = rng.laplace(size=(n, CLASSICAL_COLS))
+    score = S[:, 0] + 0.7 * S[:, 1] - 0.5 * S[:, 2] * S[:, 3] + 0.8 * rng.standard_normal(n)
+    return S @ mixing, (score > 0).astype(np.int64)
+
+
+def timed_fit(fn):
+    """(fn(), wall ms), synchronized on the card."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def classical_fits(device: str, rows: int = CLASSICAL_ROWS) -> dict:
+    """(a)'s fits on ``device``: their outputs on held-out rows and ms per fit."""
+    from audioanalysisdetector_tpu_torch import ml
+
+    X, y = classical_data(rows, 151)
+    Xq, _ = classical_data(CLASSICAL_TEST, 152)
+    out = {}
+    sc, out["scaler_ms"] = timed_fit(lambda: ml.StandardScaler(device=device).fit(X))
+    Z, Zq = sc.transform(X), sc.transform(Xq)
+    out["scaled"] = Z
+    pca, out["pca_ms"] = timed_fit(lambda: ml.PCA(40, random_state=42, device=device).fit(Z))
+    out["pca"] = (pca.components_.cpu().numpy(), pca.transform(Zq))
+    ica, out["ica_ms"] = timed_fit(lambda: ml.FastICA(40, random_state=42, device=device).fit(Z))
+    out["ica"] = (ica.transform(Zq), ica.n_iter_)
+    P, Pq = pca.transform(Z), pca.transform(Zq)
+    for C in (1.0, 10.0):
+        svc, out[f"svc{C:g}_ms"] = timed_fit(lambda: ml.SVC(C=C, device=device).fit(P, y))
+        out[f"svc{C:g}"] = (svc.decision_function(Pq), int(svc.n_iter_[0]), len(svc.support_))
+    hgb, out["hgb_ms"] = timed_fit(lambda: ml.HistGradientBoostingClassifier(
+        max_iter=100, max_depth=5, random_state=42, device=device).fit(Z, y))
+    out["hgb"] = (hgb.predict_proba(Zq), hgb.n_iter_, int(sum(hgb.n_leaves_)))
+    return out
+
+
+def classical_estimators(card: dict, cpu: dict) -> None:
+    """(a) Each estimator at the fold scale on the card against the CPU
+    (``classical_fits`` on each)."""
+    scaler_err = float(np.abs(card["scaled"] - cpu["scaled"]).max())
+    comp_card, comp_cpu = card["pca"][0], cpu["pca"][0]
+    signs = np.sign((comp_card * comp_cpu).sum(1, keepdims=True))
+    pca_err = float(max(np.abs(comp_card * signs - comp_cpu).max(),
+                        np.abs(card["pca"][1] - cpu["pca"][1]).max() / np.abs(cpu["pca"][1]).max()))
+    ica_err = float(np.abs(card["ica"][0] - cpu["ica"][0]).max())
+    log("classical", part="a", rows=CLASSICAL_ROWS, cols=CLASSICAL_COLS, scaler_ms=f"{card['scaler_ms']:.3f}",
+        scaler_err=f"{scaler_err:.3e}", pca_ms=f"{card['pca_ms']:.3f}", pca_rel_err=f"{pca_err:.3e}",
+        ica_ms=f"{card['ica_ms']:.3f}", ica_iters=f"{card['ica'][1]},{cpu['ica'][1]}", ica_err=f"{ica_err:.3e}",
+        cpu_ms="scaler=%.1f,pca=%.1f,ica=%.1f" % (cpu["scaler_ms"], cpu["pca_ms"], cpu["ica_ms"]))
+    bad = []
+    if scaler_err > SCALER_TOL:
+        bad.append(f"scaler {scaler_err:.3e}")
+    if pca_err > PCA_RTOL:
+        bad.append(f"PCA {pca_err:.3e}")
+    if ica_err > ICA_TOL or card["ica"][1] != cpu["ica"][1]:
+        bad.append(f"FastICA {ica_err:.3e}, n_iter {card['ica'][1]} vs {cpu['ica'][1]}")
+    for C in ("1", "10"):
+        (dec, steps, n_sv), (dec_cpu, steps_cpu, n_sv_cpu) = card[f"svc{C}"], cpu[f"svc{C}"]
+        err = float(np.abs(dec - dec_cpu).max())
+        log("classical", part="a", fit=f"svc_rbf_C{C}", rows=CLASSICAL_ROWS, cols=40,
+            card_ms=f"{card[f'svc{C}_ms']:.1f}", cpu_ms=f"{cpu[f'svc{C}_ms']:.1f}", smo_steps=f"{steps},{steps_cpu}",
+            ms_per_step=f"{card[f'svc{C}_ms'] / steps:.4f}", support=f"{n_sv},{n_sv_cpu}", decision_err=f"{err:.3e}")
+        if err > SVC_TOL or steps != steps_cpu or n_sv != n_sv_cpu:
+            bad.append(f"SVC C={C} {err:.3e}, SMO steps {steps}/{steps_cpu}, support {n_sv}/{n_sv_cpu}")
+    (proba, trees, leaves), (proba_cpu, trees_cpu, leaves_cpu) = card["hgb"], cpu["hgb"]
+    err = float(np.abs(proba - proba_cpu).max())
+    log("classical", part="a", fit="hgb_100_depth5", rows=CLASSICAL_ROWS, cols=CLASSICAL_COLS,
+        card_ms=f"{card['hgb_ms']:.1f}", cpu_ms=f"{cpu['hgb_ms']:.1f}", trees=f"{trees},{trees_cpu}",
+        leaves=f"{leaves},{leaves_cpu}", ms_per_tree=f"{card['hgb_ms'] / trees:.3f}", proba_err=f"{err:.3e}")
+    if err > HGB_TOL or trees != trees_cpu or leaves != leaves_cpu:
+        bad.append(f"HGB {err:.3e}, trees {trees}/{trees_cpu}, leaves {leaves}/{leaves_cpu}")
+    if bad:
+        raise AssertionError("classical estimators, card vs CPU: " + "; ".join(bad))
+
+
+def classical_grid_search(d: str) -> None:
+    """(b) ``classical_main``'s two grids (``svm_grid``, ``xgb_grid``) at the
+    reference's scale on the card, cv=3, each cut to ``GRID_CANDIDATE``
+    (PCA 40 with C 1; PCA 40, 100 iterations, depth 3): its three folds
+    and the refit."""
+    from audioanalysisdetector_tpu_torch import ml
+    from audioanalysisdetector_tpu_torch.train.classical import svm_grid, xgb_grid
+
+    X, y = classical_data(GRID_ROWS + CLASSICAL_TEST, 153)
+    scaler = ml.StandardScaler(device=DEVICE).fit(X[:GRID_ROWS])
+    Xtr, Xte = scaler.transform(X[:GRID_ROWS]), scaler.transform(X[GRID_ROWS:])
+    ytr, yte = y[:GRID_ROWS], y[GRID_ROWS:]
+    cache_dir = os.path.join(d, "grid_cache")
+    for arm, search in (("svm", svm_grid), ("xgb", xgb_grid)):
+        res, ms = timed_fit(lambda: search(Xtr, ytr, Xte, yte, cache_dir=cache_dir, device=DEVICE,
+                                           **GRID_CANDIDATE[arm]))
+        log("classical", part="b", arm=arm, rows=GRID_ROWS, cols=CLASSICAL_COLS, cv=3,
+            grid="one candidate" if GRID_CANDIDATE[arm] else "full", grid_s=f"{ms / 1e3:.1f}",
+            accuracy=f"{res['accuracy']:.4f}", f1=f"{res['f1']:.4f}",
+            best_params=",".join(f"{k}={v}" for k, v in res["best_params"].items()))
+        if not 0.5 < res["accuracy"] <= 1.0:
+            raise AssertionError(f"classical grid {arm}: accuracy {res['accuracy']}")
+
+
+def smo_fit_ms(n: int, graph: bool) -> tuple[float, int]:
+    """(ms, steps) of one SMO solve on the card (rbf, C 1, gamma "scale",
+    the Gram matrix built outside the timing) over ``n`` standardized rows
+    of ``classical_data``, through ``ml/svm.py``'s eager loop or its CUDA
+    graph."""
+    from audioanalysisdetector_tpu_torch.ml import svm
+
+    X, y = classical_data(n, 156)
+    X = torch.as_tensor((X - X.mean(0)) / X.std(0), device=DEVICE)
+    K = svm.kernel_matrix(X, X, "rbf", 1.0 / (X.shape[1] * float(X.var(correction=0))))
+    sign = torch.as_tensor(2.0 * y - 1.0, dtype=torch.float64, device=DEVICE)
+    smo = svm._SMO(K, sign, 1.0, svm.SMO_TOL)
+    steps, ms = timed_fit(lambda: smo.solve(10_000_000, graph=graph))
+    return ms, steps
+
+
+def smo_paths() -> float:
+    """(a) SMO's eager loop against its CUDA graph on the card, per fit,
+    from the gridsearch CLI's 16 rows to the fold's 4,800 (median of a few
+    fits where they are short); returns the graph's ms at the last size."""
+    smo_fit_ms(16, True), smo_fit_ms(16, False)  # warm-up
+    for n in SMO_PATH_ROWS:
+        reps = 9 if n <= 256 else 1
+        ms = {}
+        for graph in (False, True):
+            runs = [smo_fit_ms(n, graph) for _ in range(reps)]
+            ms[graph], steps = float(np.median([r[0] for r in runs])), runs[0][1]
+        log("classical", part="a", smo_path_rows=n, smo_steps=steps, eager_ms=f"{ms[False]:.3f}",
+            graph_ms=f"{ms[True]:.3f}", graph_over_eager=f"{ms[True] / ms[False]:.3f}")
+    return ms[True]
+
+
+def classical_corpus(d: str) -> tuple[str, str, str]:
+    """(c)'s inputs: a small surrogate corpus (metadata, FLAC dir) and 16 WAVs
+    in bonafide/ and spoof/ directories."""
+    from audioanalysisdetector_tpu_torch.data.synthetic import make_surrogate_corpus
+
+    meta, flac = make_surrogate_corpus(os.path.join(d, "corpus"), n_bonafide=16, n_spoof_per_tier=4,
+                                       seconds=1.5, seed=5, subset="train")
+    wavs = os.path.join(d, "wavs")
+    for i, (row, label) in enumerate(zip(*train_corpus(16, 154))):
+        path = os.path.join(wavs, "spoof" if label else "bonafide", f"u{i:02d}.wav")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_wav(path, np.clip(row.cpu().numpy(), -0.999, 0.999), SR)
+    return meta, flac, wavs
+
+
+def classical_cli_runs(d: str, meta: str, flac: str, wavs: str, device: str) -> dict:
+    """(c)'s two commands on ``device``: {command: (result, wall s, K3
+    launches)}, each command's launches counted from 0 (0 on the CPU)."""
+    counted = run_counted if device != "cpu" else (lambda fn: (fn(), launch_counts()))
+    gs_dir = os.path.join(d, f"gs_{device}")
+    argvs = {
+        "classical": ["classical", "--dataset", f"LA:{meta}:{flac}", "--seconds", "1.5", "--components", "4,8",
+                      "--cache-dir", os.path.join(d, f"cache_{device}"), "--device", device],
+        "gridsearch": ["gridsearch", wavs, "--features", "mfcc", "--components", "4", "--output-dir", gs_dir,
+                       "--cache-dir", os.path.join(d, f"gs_cache_{device}"), "--device", device],
+    }
+    out = {}
+    for command, argv in argvs.items():
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        stdout, counts = counted(lambda: cli_main_quiet(argv))
+        if command == "classical":
+            result = json.loads(stdout.strip().splitlines()[-1])
+        else:
+            with open(os.path.join(gs_dir, "gridsearch_summary.csv")) as f:
+                result = f.read()
+        out[command] = (result, time.perf_counter() - t0, counts["ct_mel"])
+    return out
+
+
+def classical_clis(card: dict, cpu: dict) -> int:
+    """(c) The ``classical`` and ``gridsearch`` CLIs on the card against
+    ``--device cpu`` (``classical_cli_runs`` on each); returns K3's
+    launches of the card runs."""
+    launches = 0
+    for command in ("classical", "gridsearch"):
+        (got, wall, n_k3), (want, cpu_wall, _) = card[command], cpu[command]
+        launches += expect_launched({"ct_mel": n_k3}, "ct_mel", f"{command} CLI")
+        if command == "classical":
+            same = all(got[a][k] == want[a][k] for a in ("svm", "xgb") for k in ("accuracy", "best_params"))
+            shown = {a: (got[a]["accuracy"], got[a]["best_params"]) for a in ("svm", "xgb")}
+        else:
+            same = got == want
+            shown = f"{got.count(chr(10)) - 1} rows"
+        log("classical", part="c", command=command, wall_s=f"{wall:.1f}", cpu_wall_s=f"{cpu_wall:.1f}",
+            ct_mel_launches=n_k3, equal_to_cpu=same, result=json.dumps(shown))
+        if not same:
+            raise AssertionError(f"{command} CLI: card {got} vs CPU {want}")
+    return launches
+
+
+def classical_profiling(d: str) -> None:
+    """(d) ``StepTimer`` and ``profile_fn`` around one K3 call, ``device_trace``."""
+    from audioanalysisdetector_tpu_torch.utils import StepTimer, device_trace, profile_fn
+
+    cfg = MelConfig.for_profile("parity", SR)
+    padded = center_pad(waves(BATCH, 155), cfg.n_fft, cfg.pad_mode).contiguous()
+    T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
+    k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
+    timer = StepTimer("ct_mel")
+    for _ in range(6):
+        with timer.measure() as sync:
+            sync(k3())
+    steps = timer.summary(items_per_step=BATCH)
+    prof = profile_fn(k3, iters=5, items=BATCH)
+    trace_dir = os.path.join(d, "trace")
+    with device_trace(trace_dir):
+        k3()
+    traces = os.listdir(trace_dir)
+    log("classical", part="d", step_timer_mean_ms=f"{steps['mean_ms']:.3f}", step_timer_p99_ms=f"{steps['p99_ms']:.3f}",
+        profile_fn_mean_ms=f"{prof['mean_ms']:.3f}", profile_fn_utt_s=f"{prof['items_per_sec']:.0f}",
+        trace_files=",".join(traces), trace_bytes=sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces))
+    if not traces or not 0 < steps["mean_ms"] < 1e3:
+        raise AssertionError(f"profiling: {steps}, traces {traces}")
+
+
+def _cpu_helper_init() -> None:
+    torch.set_num_threads(3)  # two helpers; the card process keeps the other cores
+
+
+def phase_classical() -> dict:
+    """Phase 15; returns K3's launches of the two CLIs on the card (their
+    MFCC at 128 mels). The card's fits of (a) are timed with the host to
+    themselves; then the CPU references of (a) and (c) run in two spawned
+    helper processes (no CUDA there) while the card runs (b) to (d), whose
+    walls are thus taken beside them (one SMO solve of (a) is timed again
+    there to show what they cost); the comparisons come last."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    with tempfile.TemporaryDirectory() as d:
+        classical_fits(DEVICE, rows=256)  # warm-up: the card's libraries load on first use
+        card_fits = classical_fits(DEVICE)
+        alone_ms = smo_paths()
+        free()
+        corpus = classical_corpus(d)
+        with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"), initializer=_cpu_helper_init) as pool:
+            cpu_fits = pool.submit(classical_fits, "cpu")
+            cpu_clis = pool.submit(classical_cli_runs, d, *corpus, "cpu")
+            beside_ms, _ = smo_fit_ms(SMO_PATH_ROWS[-1], True)
+            log("classical", part="a", smo_rows=SMO_PATH_ROWS[-1], graph_ms_alone=f"{alone_ms:.3f}",
+                graph_ms_beside_cpu_helpers=f"{beside_ms:.3f}")
+            free()
+            classical_grid_search(d)
+            free()
+            card_clis = classical_cli_runs(d, *corpus, DEVICE)
+            classical_profiling(d)
+            classical_estimators(card_fits, cpu_fits.result())
+            launches = classical_clis(card_clis, cpu_clis.result())
+    free()
+    return {"ct_mel": launches}
+
+
 def timed_phase(phase):
     """``phase()``, with its wall printed after it."""
     t0 = time.perf_counter()
@@ -2520,7 +2824,7 @@ def timed_phase(phase):
 
 def main() -> int:
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     timed_phase(phase_build)
     k1 = timed_phase(phase_k1)
     k3 = timed_phase(phase_k3)
@@ -2535,6 +2839,7 @@ def main() -> int:
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
     launches["ct_mel"] += timed_phase(phase_multi)["ct_mel"]
     launches["ct_mel"] += timed_phase(phase_models_xai)["ct_mel"]
+    launches["ct_mel"] += timed_phase(phase_classical)["ct_mel"]
     timed = {
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],
@@ -2557,6 +2862,7 @@ def main() -> int:
             "bound_by": timed[name]["bound_by"],
             "library_ms": timed[name]["library_ms"],
         })
+    print(smi, flush=True)  # again, so the card and its power limit stand beside the results
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"ok": True, "device": {

@@ -170,3 +170,30 @@ def test_port_imports_without_jax():
             if words[:1] in (["import"], ["from"]):
                 assert not words[1].startswith("audioanalysisdetector_tpu."), (path, line)
                 assert words[1] != "audioanalysisdetector_tpu", (path, line)
+
+
+def test_classical_path_imports_without_host_ml_libraries():
+    """``ml/``, ``train/classical``, ``utils/`` and the CLI import, and the
+    classical commands parse, with jax, sklearn, pandas, joblib, xgboost and
+    matplotlib blocked (the port depends on none of them)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sklearn', 'pandas', 'joblib', 'xgboost', 'matplotlib', 'flax', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil\n"
+        "import audioanalysisdetector_tpu_torch.ml as ML\n"
+        "import audioanalysisdetector_tpu_torch.utils as U\n"
+        "for pkg in (ML, U):\n"
+        "    for mi in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "        importlib.import_module(mi.name)\n"
+        "importlib.import_module('audioanalysisdetector_tpu_torch.train.classical')\n"
+        "from audioanalysisdetector_tpu_torch.cli.main import build_parser\n"
+        "build_parser().parse_args(['classical', '--dataset', 'LA:m:a', '--device', 'cpu'])\n"
+        "build_parser().parse_args(['gridsearch', '.', '--features', 'mfcc'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'sklearn', 'pandas', 'joblib', 'xgboost', 'matplotlib', 'audioanalysisdetector_tpu') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
