@@ -39,6 +39,7 @@ from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import _window_array, center_pad
 from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 N1 = 64  # in-chunk offset / stage-C DFT length
 N2 = 32  # chunk index / stage-A DFT length
@@ -258,7 +259,8 @@ def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     at the parity profile)."""
     lead, n = y.shape[:-1], y.shape[-1]
     n_frames = 1 + n // cfg.hop_length
-    flat = center_pad(y.reshape(-1, n), cfg.n_fft, cfg.pad_mode)
+    with span("mel.pad"):
+        flat = center_pad(y.reshape(-1, n), cfg.n_fft, cfg.pad_mode)
     mel = ct_mel(flat, cfg, n_frames=n_frames)
     return mel.reshape(*lead, n_frames, cfg.n_mels)
 

@@ -41,6 +41,7 @@ from audioanalysisdetector_tpu_torch.frontend.stft import (
     n_frames_for,
 )
 from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 K_TILE = 64  # bin padding of the plain version's bases (the JAX kernel's K_TILE)
 MAX_MELS = 128  # mel accumulators per row and group (K2 takes one group)
@@ -266,7 +267,8 @@ def wave_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     n_frames = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
     flat = y.reshape(-1, n)
     if cfg.center:
-        flat = center_pad(flat, cfg.n_fft, cfg.pad_mode)
+        with span("mel.pad"):
+            flat = center_pad(flat, cfg.n_fft, cfg.pad_mode)
     mel = wave_mel(flat.contiguous(), cfg, n_frames=n_frames)
     return mel.reshape(*lead, n_frames, cfg.n_mels)
 

@@ -19,6 +19,7 @@ from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
 from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -108,9 +109,12 @@ def make_mel_cnn_bilstm_scorer(
 
     @torch.inference_mode()
     def score(wav: torch.Tensor) -> torch.Tensor:
-        feats = melspec_features(wav.to(compute_dtype), mel_cfg)
-        out = model(feats.float())
-        return out.reshape(out.shape[0])
+        with span("score.call"):
+            with span("score.frontend"):
+                feats = melspec_features(wav.to(compute_dtype), mel_cfg)
+            with span("score.model"):
+                out = model(feats.float())
+                return out.reshape(out.shape[0])
 
     return score
 
@@ -142,10 +146,13 @@ def make_cqcc_fused_scorer(
 
     @torch.inference_mode()
     def score(wav: torch.Tensor) -> torch.Tensor:
-        feats = transpose_cqcc(cqcc(wav, cqcc_cfg))  # (B, T, 19)
-        if scale is not None:
-            feats = (feats - scale[0]) / scale[1]
-        return fused_scores(model, gmm_genuine, gmm_spoof, feats)
+        with span("score.call"):
+            with span("score.frontend"):
+                feats = transpose_cqcc(cqcc(wav, cqcc_cfg))  # (B, T, 19)
+                if scale is not None:
+                    feats = (feats - scale[0]) / scale[1]
+            with span("score.model"):
+                return fused_scores(model, gmm_genuine, gmm_spoof, feats)
 
     return score
 

@@ -31,6 +31,7 @@ import torch
 
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM, masked_llr
 from audioanalysisdetector_tpu_torch.train import metrics as M
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
 def ieee_fp32() -> None:
@@ -66,7 +67,8 @@ def arm_scores(
     bilstm_prob = torch.softmax(model(x), dim=-1)[:, 1]
     mask = padding_mask(x)
     gx = gmm_feature_fn(x) if gmm_feature_fn is not None else x
-    llr_spoof = masked_llr(gx, mask, gmm_spoof, gmm_genuine)
+    with span("fused.gmm"):
+        llr_spoof = masked_llr(gx, mask, gmm_spoof, gmm_genuine)
     empty = torch.sum(mask, dim=-1) == 0
     return bilstm_prob, llr_spoof, empty
 

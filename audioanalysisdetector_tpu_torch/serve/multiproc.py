@@ -210,6 +210,10 @@ class _RemoteStats:
     def snapshot(self) -> dict:
         return self._scorer._request_json(_OP_STATS)
 
+    def add_parse(self, seconds: float) -> None:
+        """Parsing runs in the worker processes: the owner's ``parse_s`` and
+        ``parsed`` stay 0."""
+
 
 class RemoteScorer:
     """Client-side duck type of :class:`BatchingScorer` over the owner socket.

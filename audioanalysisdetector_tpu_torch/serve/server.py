@@ -29,6 +29,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from audioanalysisdetector_tpu_torch.utils.profiling import span
+
 __all__ = [
     "BatchingScorer",
     "ScoreServer",
@@ -50,7 +52,18 @@ def default_bucket_ladder(max_batch: int) -> tuple[int, ...]:
 
 @dataclass
 class ServeStats:
-    """Counters exposed at ``GET /v1/stats`` (all monotonically increasing)."""
+    """Counters exposed at ``GET /v1/stats`` (all monotonically increasing).
+
+    The host-clock sums are sums and counts, not means, so that two
+    snapshots subtract: ``queue_wait_s`` / ``popped`` is the mean wait of a
+    slice from its arrival to the worker's pop, ``dispatch_s`` / ``batches``
+    the mean scorer call of a dispatch (upload, score, fetch), and
+    ``parse_s`` / ``parsed`` the mean time ``ScoreServer`` takes to turn a
+    request body into rows (failed parses included). Each is added under
+    the lock once per dispatch or request. Behind ``serve/multiproc.py``
+    the owner's ``parse_s`` and ``parsed`` stay 0: the worker processes
+    parse.
+    """
 
     requests: int = 0
     utterances: int = 0
@@ -60,6 +73,11 @@ class ServeStats:
     rejected: int = 0
     errors: int = 0
     early_ships: int = 0  # adaptive window closed before max_wait
+    queue_wait_s: float = 0.0  # summed over popped slices: pop time - arrival
+    popped: int = 0  # slices the worker popped off the queue
+    dispatch_s: float = 0.0  # the scorer calls of the dispatches
+    parse_s: float = 0.0  # request bodies turned into rows
+    parsed: int = 0  # requests parsed
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def snapshot(self) -> dict:
@@ -75,7 +93,17 @@ class ServeStats:
                 "rejected": self.rejected,
                 "errors": self.errors,
                 "early_ships": self.early_ships,
+                "queue_wait_s": self.queue_wait_s,
+                "popped": self.popped,
+                "dispatch_s": self.dispatch_s,
+                "parse_s": self.parse_s,
+                "parsed": self.parsed,
             }
+
+    def add_parse(self, seconds: float) -> None:
+        with self._lock:
+            self.parse_s += seconds
+            self.parsed += 1
 
 
 class _Pending:
@@ -135,6 +163,10 @@ class BatchingScorer:
         self._ewma_gap: float | None = None  # s between request arrivals
         self._ewma_rows: float | None = None  # rows per arrival
         self._last_arrival: float | None = None
+        # queue waits of the slices popped since the last dispatch (worker
+        # thread only; added to the stats once per dispatch)
+        self._waited = 0.0
+        self._popped = 0
         # a data-parallel scorer shards dispatch rows over local devices
         # and needs every bucket divisible by the device count
         multiple = int(getattr(scorer, "row_multiple", 1) or 1)
@@ -260,7 +292,10 @@ class BatchingScorer:
 
     def _note_arrival(self, p: "_Pending") -> None:
         """Update the EWMA inter-arrival gap / rows-per-arrival estimators
-        from an item's enqueue timestamp (called once per queue pop)."""
+        from an item's enqueue timestamp (called once per queue pop), and
+        count the item's wait in the queue."""
+        self._waited += time.monotonic() - p.t_arrival
+        self._popped += 1
         if self._last_arrival is not None:
             gap = p.t_arrival - self._last_arrival
             # clamp idle stretches so one quiet period doesn't poison the
@@ -311,43 +346,44 @@ class BatchingScorer:
         batch = [first]
         rows = len(first.wav)
         deadline = time.monotonic() + self.max_wait_s
-        while rows < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            item: _Pending | None
-            if self.adaptive:
-                try:  # drain whatever already queued without blocking
-                    item = self._q.get_nowait()
-                except _queue.Empty:
-                    wait = self._adaptive_wait(rows, remaining)
-                    if wait <= 0.0:
-                        with self.stats._lock:
-                            self.stats.early_ships += 1
-                        break
-                    try:
-                        item = self._q.get(timeout=wait)
+        with span("serve.collect"):
+            while rows < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                item: _Pending | None
+                if self.adaptive:
+                    try:  # drain whatever already queued without blocking
+                        item = self._q.get_nowait()
                     except _queue.Empty:
-                        if wait < remaining:  # gave up before the cap
+                        wait = self._adaptive_wait(rows, remaining)
+                        if wait <= 0.0:
                             with self.stats._lock:
                                 self.stats.early_ships += 1
+                            break
+                        try:
+                            item = self._q.get(timeout=wait)
+                        except _queue.Empty:
+                            if wait < remaining:  # gave up before the cap
+                                with self.stats._lock:
+                                    self.stats.early_ships += 1
+                            break
+                else:
+                    try:
+                        item = self._q.get(timeout=remaining)
+                    except _queue.Empty:
                         break
-            else:
-                try:
-                    item = self._q.get(timeout=remaining)
-                except _queue.Empty:
+                if item is None:  # shutdown sentinel: ship what we have
+                    self._stop.set()
                     break
-            if item is None:  # shutdown sentinel: ship what we have
-                self._stop.set()
-                break
-            self._note_arrival(item)
-            if item.cancelled:
-                continue
-            if rows + len(item.wav) > self.max_batch:
-                self._carry = item  # starts the next batch
-                break
-            batch.append(item)
-            rows += len(item.wav)
+                self._note_arrival(item)
+                if item.cancelled:
+                    continue
+                if rows + len(item.wav) > self.max_batch:
+                    self._carry = item  # starts the next batch
+                    break
+                batch.append(item)
+                rows += len(item.wav)
         return batch
 
     def warm_up(self) -> None:
@@ -362,6 +398,14 @@ class BatchingScorer:
                 return b
         return self.max_batch
 
+    def _add_waits_locked(self, dispatch_s: float) -> None:
+        """Add one dispatch's scorer time and the queue waits of the slices
+        popped since the last dispatch; the caller holds the stats lock."""
+        self.stats.dispatch_s += dispatch_s
+        self.stats.queue_wait_s += self._waited
+        self.stats.popped += self._popped
+        self._waited, self._popped = 0.0, 0
+
     def _run(self) -> None:
         while True:
             batch = self._collect()
@@ -373,8 +417,11 @@ class BatchingScorer:
             for p in batch:
                 mat[off : off + len(p.wav)] = p.wav
                 off += len(p.wav)
+            t0 = time.monotonic()
             try:
-                scores = np.asarray(self._scorer(mat)).reshape(-1)
+                with span("serve.dispatch"):
+                    scores = np.asarray(self._scorer(mat)).reshape(-1)
+                dispatch_s = time.monotonic() - t0
                 off = 0
                 for p in batch:
                     p.result = scores[off : off + len(p.wav)].copy()
@@ -383,11 +430,13 @@ class BatchingScorer:
                     self.stats.batches += 1
                     self.stats.batch_rows += rows
                     self.stats.dispatched_rows += len(mat)
+                    self._add_waits_locked(dispatch_s)
             except BaseException as e:  # noqa: BLE001 — delivered per-request
                 for p in batch:
                     p.error = e
                 with self.stats._lock:
                     self.stats.errors += 1
+                    self._add_waits_locked(time.monotonic() - t0)
             finally:
                 for p in batch:
                     p.done.set()
@@ -519,12 +568,7 @@ class ScoreServer:
                         self._reply(413, {"error": "body too large"})
                         return
                     body = self.rfile.read(length)
-                    if self.path == "/v1/score_raw":
-                        rows = outer._rows_from_raw(
-                            body, self.headers.get("X-Rows", "1")
-                        )
-                    else:
-                        rows = outer._rows_from_request(json.loads(body))
+                    rows = outer._parse(self.path, body, self.headers.get("X-Rows", "1"))
                     scores = outer.batcher.score(
                         rows, timeout=outer.request_timeout
                     )
@@ -564,6 +608,18 @@ class ScoreServer:
         self._thread: threading.Thread | None = None
 
     # ---- request assembly ----
+
+    def _parse(self, path: str, body: bytes, rows_header: str) -> np.ndarray:
+        """The rows of one request body, under the ``serve.parse`` span and
+        timed into the stats' ``parse_s`` / ``parsed``."""
+        t0 = time.monotonic()
+        try:
+            with span("serve.parse"):
+                if path == "/v1/score_raw":
+                    return self._rows_from_raw(body, rows_header)
+                return self._rows_from_request(json.loads(body))
+        finally:
+            self.batcher.stats.add_parse(time.monotonic() - t0)
 
     def _rows_from_request(self, req: dict) -> np.ndarray:
         if "pcm_b64" in req:

@@ -49,6 +49,7 @@ from audioanalysisdetector_tpu_torch.train.steps import (
     make_train_step,
     replicate,
 )
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 Data = np.ndarray | torch.Tensor | tuple
 
@@ -201,8 +202,9 @@ def would_use_dp(batch_size: int) -> bool:
 
 def _save_best_worst(run_dir: str | None, name: str, state: TrainState, epoch: int, val_loss: float) -> None:
     if run_dir:
-        save_checkpoint(os.path.join(run_dir, name), state,
-                        metadata={"epoch": epoch, "val_loss": val_loss})
+        with span("fit.checkpoint"):
+            save_checkpoint(os.path.join(run_dir, name), state,
+                            metadata={"epoch": epoch, "val_loss": val_loss})
 
 
 def fit(
@@ -257,52 +259,55 @@ def fit(
     best_epoch = -1
 
     for epoch in range(num_epochs):
-        t0 = time.time()
-        tr_loss_d = tr_acc_d = None
-        tr_n = 0.0
-        for xb, yb, true in batch_iter(
-            *train_data, batch_size, shuffle=True, seed=seed + epoch, across_processes=mesh is not None
-        ):
-            state, m = step(state, _to(xb, device), _labels(yb, device), generator)
-            dl, da = m["loss"] * true, m["accuracy"] * true
-            tr_loss_d = dl if tr_loss_d is None else tr_loss_d + dl
-            tr_acc_d = da if tr_acc_d is None else tr_acc_d + da
-            tr_n += true
+        with span("fit.epoch"):
+            t0 = time.time()
+            tr_loss_d = tr_acc_d = None
+            tr_n = 0.0
+            for xb, yb, true in batch_iter(
+                *train_data, batch_size, shuffle=True, seed=seed + epoch, across_processes=mesh is not None
+            ):
+                with span("fit.step"):
+                    state, m = step(state, _to(xb, device), _labels(yb, device), generator)
+                dl, da = m["loss"] * true, m["accuracy"] * true
+                tr_loss_d = dl if tr_loss_d is None else tr_loss_d + dl
+                tr_acc_d = da if tr_acc_d is None else tr_acc_d + da
+                tr_n += true
 
-        va_loss_d = va_acc_d = None
-        va_n = 0.0
-        for xb, yb, true in batch_iter(*val_data, batch_size, shuffle=False, pad_tail=False):
-            m = eval_step(state, _to(xb, device), _labels(yb, device))
-            dl, da = m["loss"] * true, m["accuracy"] * true
-            va_loss_d = dl if va_loss_d is None else va_loss_d + dl
-            va_acc_d = da if va_acc_d is None else va_acc_d + da
-            va_n += true
-        # the epoch's one host sync
-        sums = [float(t) if t is not None else 0.0 for t in (tr_loss_d, tr_acc_d, va_loss_d, va_acc_d)]
+            with span("fit.validate"):
+                va_loss_d = va_acc_d = None
+                va_n = 0.0
+                for xb, yb, true in batch_iter(*val_data, batch_size, shuffle=False, pad_tail=False):
+                    m = eval_step(state, _to(xb, device), _labels(yb, device))
+                    dl, da = m["loss"] * true, m["accuracy"] * true
+                    va_loss_d = dl if va_loss_d is None else va_loss_d + dl
+                    va_acc_d = da if va_acc_d is None else va_acc_d + da
+                    va_n += true
+                # the epoch's one host sync
+                sums = [float(t) if t is not None else 0.0 for t in (tr_loss_d, tr_acc_d, va_loss_d, va_acc_d)]
 
-        row = EpochLog(
-            epoch=epoch,
-            train_loss=sums[0] / max(tr_n, 1),
-            train_acc=sums[1] / max(tr_n, 1),
-            val_loss=sums[2] / max(va_n, 1),
-            val_acc=sums[3] / max(va_n, 1),
-            seconds=time.time() - t0,
-        )
-        logs.append(row)
-        if verbose:
-            print(
-                f"epoch {epoch}: train loss {row.train_loss:.4f} acc {row.train_acc:.4f}"
-                f" | val loss {row.val_loss:.4f} acc {row.val_acc:.4f} ({row.seconds:.1f}s)"
+            row = EpochLog(
+                epoch=epoch,
+                train_loss=sums[0] / max(tr_n, 1),
+                train_acc=sums[1] / max(tr_n, 1),
+                val_loss=sums[2] / max(va_n, 1),
+                val_acc=sums[3] / max(va_n, 1),
+                seconds=time.time() - t0,
             )
+            logs.append(row)
+            if verbose:
+                print(
+                    f"epoch {epoch}: train loss {row.train_loss:.4f} acc {row.train_acc:.4f}"
+                    f" | val loss {row.val_loss:.4f} acc {row.val_acc:.4f} ({row.seconds:.1f}s)"
+                )
 
-        if row.val_loss < best_val:
-            best_val = row.val_loss
-            best_state = state.copy()
-            best_epoch = epoch
-            _save_best_worst(run_dir, "best_model.msgpack", state, epoch, row.val_loss)
-        if row.val_loss > worst_val:
-            worst_val = row.val_loss
-            _save_best_worst(run_dir, "worst_model.msgpack", state, epoch, row.val_loss)
+            if row.val_loss < best_val:
+                best_val = row.val_loss
+                best_state = state.copy()
+                best_epoch = epoch
+                _save_best_worst(run_dir, "best_model.msgpack", state, epoch, row.val_loss)
+            if row.val_loss > worst_val:
+                worst_val = row.val_loss
+                _save_best_worst(run_dir, "worst_model.msgpack", state, epoch, row.val_loss)
 
     if run_dir:
         _write_run_artifacts(

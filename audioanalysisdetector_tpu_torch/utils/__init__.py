@@ -8,17 +8,11 @@ and reuses from there.
 """
 
 from audioanalysisdetector_tpu_torch.utils.plotting import plot_coeff_histograms_by_label
-from audioanalysisdetector_tpu_torch.utils.profiling import (
-    StepTimer,
-    device_trace,
-    profile_fn,
-    timed,
-)
+from audioanalysisdetector_tpu_torch.utils.profiling import StepTimer, device_trace, span
 
 __all__ = [
     "StepTimer",
     "device_trace",
     "plot_coeff_histograms_by_label",
-    "profile_fn",
-    "timed",
+    "span",
 ]

@@ -1,12 +1,49 @@
 """Tracing / profiling subsystem (PyTorch port).
 
 Counterpart of the JAX package's ``utils/profiling.py``: per-step timing
-aggregation with percentile summaries and throughput (``StepTimer``,
-``profile_fn``), a phase-scoped wall timer (``timed``) and device trace
-capture (``device_trace``, ``torch.profiler`` writing a Chrome trace that
-Perfetto or ``chrome://tracing`` opens). Work queued on a card runs
-asynchronously, so the timers synchronize on the device of the result
-before the clock stops.
+aggregation with percentile summaries and throughput (``StepTimer``),
+device trace capture (``device_trace``, ``torch.profiler`` writing a
+Chrome trace that Perfetto or ``chrome://tracing`` opens), and the port's
+one span primitive, ``span``. Work queued on a card runs asynchronously,
+so the timers synchronize on the device of the result before the clock
+stops.
+
+``span(name)`` opens a ``torch.profiler.record_function`` range while a
+profiler session records, so the span lies on the profiler's host clock
+beside the kernels it launches; otherwise it is one shared no-op context
+and costs one flag check. Spans are on exactly while a profiler records:
+the benchmark's traced window, or an operator's ``device_trace``. Every
+span the port opens, and what reads it (``portbench/harness/spans.py``
+puts each device operation under the spans open on its launching thread
+and names the card's idle gaps by span path;
+``portbench/tools/span_readings.py`` reports the per-call readings):
+
+- ``score.call``: one call of a scorer of ``score/e2e.py``; the calls
+  completed in a window divide every per-call reading, and its device
+  operations are the launches a call.
+- ``score.frontend``: the scorer's features (log-mel; CQCC, transpose and
+  scale): the frontend's device ms a call.
+- ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``): the
+  model's device ms a call.
+- ``mel.pad``: the center reflect pad before the mel kernels
+  (``ops/ct_mel.py``, ``ops/wave_mel.py``): the pad's device ms a call.
+- ``fused.gmm``: the GMM arm's masked LLR (``score/fused.py``): the GMMs'
+  device ms a call.
+- ``serve.collect``: ``BatchingScorer`` gathering one dispatch after its
+  first slice arrived, on the batcher's thread: the host gaps of a
+  serving trace.
+- ``serve.dispatch``: the scorer call of one dispatch (upload, score,
+  fetch): the device time of a serving trace by dispatch.
+- ``serve.parse``: ``ScoreServer`` turning one request body into rows
+  (JSON, base64, ``audio_b64`` decode): the host gaps of a serving trace.
+- ``fit.epoch``, ``fit.step`` (one ``step`` call), ``fit.validate`` (the
+  validation loop and the epoch's one host sync) and ``fit.checkpoint``
+  (a best or worst checkpoint written): the share of a training window
+  under validation and checkpoints, and the gaps of a training trace.
+
+The serving counters that are always on (``queue_wait_s``, ``popped``,
+``dispatch_s``, ``parse_s``, ``parsed``) are ``serve/server.py::ServeStats``'s,
+read at ``GET /v1/stats``.
 """
 
 from __future__ import annotations
@@ -19,6 +56,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("score.frontend"): ...``: a ``record_function`` range
+    named ``name`` while a profiler session records, else the shared no-op
+    context. Names and readers: the module docstring."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _first_tensor(x) -> torch.Tensor | None:
@@ -94,13 +143,18 @@ class StepTimer:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the CPU and, where there is a
-    card, of CUDA; on exit it is written into ``log_dir`` as a Chrome trace
+    card, of CUDA, from every thread of the process (a serving trace holds
+    the batcher's thread and the HTTP handlers'), with the port's spans;
+    on exit it is written into ``log_dir`` as a Chrome trace
     (``trace_<pid>_<ns>.json``)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
+    )
     prof.__enter__()
     try:
         yield prof
@@ -109,35 +163,3 @@ def device_trace(log_dir: str):
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def profile_fn(fn, *args, iters: int = 10, warmup: int = 2, items: int | None = None) -> dict:
-    """Time a device function: warm-up calls excluded (first-use kernel
-    builds and allocator growth), each call synchronized on its result's
-    device before the clock stops."""
-
-    def _force(x):
-        sync_on(x)
-        return x
-
-    for _ in range(max(warmup, 1)):
-        _force(fn(*args))
-    timer = StepTimer(getattr(fn, "__name__", "fn"))
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        _force(fn(*args))
-        timer.record(time.perf_counter() - t0)
-    return timer.summary(items_per_step=items, skip_warmup=0)
-
-
-def timed(label: str, verbose: bool = True):
-    """Phase-scoped wall timer (the reference's start/end print pattern)."""
-
-    @contextlib.contextmanager
-    def ctx():
-        t0 = time.time()
-        yield
-        if verbose:
-            print(f"{label}: {time.time() - t0:.2f}s")
-
-    return ctx()

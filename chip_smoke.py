@@ -135,9 +135,10 @@ each print their lines:
     the ``classical`` and ``gridsearch`` CLIs over a small surrogate corpus
     on the card, their accuracies, best parameters and CSV equal to the
     same commands' with ``--device cpu``, K3's launches (their MFCC at 128
-    mels) counted; (d) ``utils.StepTimer`` and ``profile_fn`` around a K3
-    call and a ``device_trace`` file. No TPU kernel is on this path (the
-    JAX package runs scikit-learn on the host): plain PyTorch;
+    mels) counted; (d) ``utils.StepTimer`` around a K3 call and a
+    ``device_trace`` file holding the ``mel.pad`` span and K3's kernel. No
+    TPU kernel is on this path (the JAX package runs scikit-learn on the
+    host): plain PyTorch;
 16. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
 
 Each path's kernel launches are counted with every counter set to 0 just
@@ -2753,11 +2754,13 @@ def classical_clis(card: dict, cpu: dict) -> int:
 
 
 def classical_profiling(d: str) -> None:
-    """(d) ``StepTimer`` and ``profile_fn`` around one K3 call, ``device_trace``."""
-    from audioanalysisdetector_tpu_torch.utils import StepTimer, device_trace, profile_fn
+    """(d) ``StepTimer`` around one K3 call; ``device_trace`` of
+    ``ct_mel_unpadded``, whose file holds the ``mel.pad`` span and K3."""
+    from audioanalysisdetector_tpu_torch.utils import StepTimer, device_trace
 
     cfg = MelConfig.for_profile("parity", SR)
-    padded = center_pad(waves(BATCH, 155), cfg.n_fft, cfg.pad_mode).contiguous()
+    wav = waves(BATCH, 155)
+    padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
     T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
     k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
     timer = StepTimer("ct_mel")
@@ -2765,15 +2768,19 @@ def classical_profiling(d: str) -> None:
         with timer.measure() as sync:
             sync(k3())
     steps = timer.summary(items_per_step=BATCH)
-    prof = profile_fn(k3, iters=5, items=BATCH)
     trace_dir = os.path.join(d, "trace")
     with device_trace(trace_dir):
-        k3()
+        ctm.ct_mel_unpadded(wav, cfg)
     traces = os.listdir(trace_dir)
+    names = set()
+    for t in traces:
+        with open(os.path.join(trace_dir, t)) as f:
+            names.update(e.get("name", "") for e in json.load(f)["traceEvents"])
     log("classical", part="d", step_timer_mean_ms=f"{steps['mean_ms']:.3f}", step_timer_p99_ms=f"{steps['p99_ms']:.3f}",
-        profile_fn_mean_ms=f"{prof['mean_ms']:.3f}", profile_fn_utt_s=f"{prof['items_per_sec']:.0f}",
-        trace_files=",".join(traces), trace_bytes=sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces))
-    if not traces or not 0 < steps["mean_ms"] < 1e3:
+        trace_files=",".join(traces), trace_bytes=sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces),
+        mel_pad_span="mel.pad" in names, k3_in_trace=any("ct_mel_kernel" in n for n in names))
+    if not traces or not 0 < steps["mean_ms"] < 1e3 or "mel.pad" not in names \
+            or not any("ct_mel_kernel" in n for n in names):
         raise AssertionError(f"profiling: {steps}, traces {traces}")
 
 
