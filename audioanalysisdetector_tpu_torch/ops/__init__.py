@@ -8,7 +8,9 @@
 
 Import from the kernel's own module (``ops.wave_mel``): it also holds the
 kernel's launch counter, which a re-export here would shadow.
-``launch_counts`` and ``reset_launch_counts`` read and zero every counter.
+``launch_counts`` and ``reset_launch_counts`` read and zero every counter:
+each kernel's launches, and ``ct_mel.reflect``, K3's launches on a raw
+waveform (the center reflect pad folded into its frame addressing).
 ``refuse_grad`` is the check each wrapper makes before a launch: no kernel
 has a backward.
 """
@@ -19,26 +21,27 @@ import importlib
 
 import torch
 
-# kernel name -> module holding its wrapper and ``launches`` counter
-KERNELS = {
-    "wave_mel": "wave_mel",
-    "fused_mel_from_frames": "fused_logmel",
-    "ct_mel": "ct_mel",
+# counter name -> (module holding the kernel's wrapper, its counter)
+COUNTERS = {
+    "wave_mel": ("wave_mel", "launches"),
+    "fused_mel_from_frames": ("fused_logmel", "launches"),
+    "ct_mel": ("ct_mel", "launches"),
+    "ct_mel.reflect": ("ct_mel", "reflect_launches"),
 }
 
 
 def _module(name: str):
-    return importlib.import_module(f"{__name__}.{KERNELS[name]}")
+    return importlib.import_module(f"{__name__}.{COUNTERS[name][0]}")
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches made in this process, by kernel name."""
-    return {name: _module(name).launches for name in KERNELS}
+    """Kernel launches made in this process, by counter name."""
+    return {name: getattr(_module(name), attr) for name, (_, attr) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        _module(name).launches = 0
+    for name, (_, attr) in COUNTERS.items():
+        setattr(_module(name), attr, 0)
 
 
 def refuse_grad(x: torch.Tensor, kernel: str) -> None:

@@ -18,13 +18,18 @@ real frame's bins 0..1024. Its host tables (``_kernel_operands``) are the
 twiddles ``W_1024^(a c)`` and ``W_2048^k`` from float64, the window, and the
 mel weights laid out for the lanes that sum them. The TPU kernel's lane tricks (the
 contraction padded to 128, the packed ``[xr|xi]`` squares and the
-duplicated half-weighted mel matrix) and its head/body/tail reflect split
-are not carried over: the kernel reads frames from the center-padded
-waveform as K1 does.
+duplicated half-weighted mel matrix) are not carried over. Its head/body/tail
+reflect split becomes the kernel's frame addressing: a frame starts at
+sample ``f * hop - left`` of its row, and the few frames that reach past
+either end reflect each sample index themselves. ``ct_mel`` hands it
+center-padded rows (``left = 0``, no frame reaches past them);
+``ct_mel_unpadded`` hands it the raw waveform (``left = n_fft // 2``), so
+on the card librosa's reflect pad writes no padded copy.
 
-``ct_mel`` launches the kernel on a CUDA tensor and runs
-``ct_mel_reference`` on a CPU tensor. There is no fallback: a failed build
-or a refused launch raises. Unlike the TPU kernel, any batch size is taken.
+``ct_mel`` and ``ct_mel_unpadded`` launch the kernel on a CUDA tensor and run
+``ct_mel_reference`` on a CPU tensor (after ``center_pad``). There is no
+fallback: a failed build or a refused launch raises. Unlike the TPU kernel,
+any batch size is taken.
 """
 
 from __future__ import annotations
@@ -46,9 +51,11 @@ N2 = 32  # chunk index / stage-A DFT length
 N_FFT = N1 * N2
 LANES = 32  # the FFT kernel's warp: one frame row, 32 x 32 registers
 
-# Kernel launches made by ``ct_mel`` in this process. Only the wrapper's
-# CUDA branch adds to it, one per launch.
+# Kernel launches made by ``ct_mel`` and ``ct_mel_unpadded`` in this
+# process, and those of them that read a raw waveform (the reflect pad
+# folded in). Only the wrappers' CUDA branches add to them, one per launch.
 launches = 0
+reflect_launches = 0
 
 
 def _refusal(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> Exception | None:
@@ -75,7 +82,8 @@ def _check(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> None:
 def takes(cfg: MelConfig, dtype: torch.dtype) -> bool:
     """Whether ``melspectrogram`` can run a ``dtype`` waveform under ``cfg``
     through this kernel: what ``ct_mel`` accepts, and librosa's center
-    reflect pad (``ct_mel_unpadded`` applies it)."""
+    reflect pad (``ct_mel_unpadded`` folds it into the kernel's frame
+    addressing)."""
     return _refusal(cfg, dtype) is None and cfg.center and cfg.pad_mode == "reflect"
 
 
@@ -169,7 +177,7 @@ def _kernel():
     fn = _build.load_library("ct_mel").ct_mel_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
         ctypes.c_int
-    ] * 2 + [ctypes.c_void_p]
+    ] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -225,15 +233,24 @@ def ct_mel(
             raise NotImplementedError(f"ct_mel has no path for {wav_padded.device}")
         return ct_mel_reference(wav_padded, cfg, n_frames=n_frames)
     refuse_grad(wav_padded, "ct_mel")
-    B, n_pad = wav_padded.shape
+    out = _launch(wav_padded, cfg, n_frames, left=0)
+    launches += 1
+    return out
+
+
+def _launch(wav: torch.Tensor, cfg: MelConfig, n_frames: int, *, left: int) -> torch.Tensor:
+    """The kernel on contiguous ``(B, n_sig)`` float32 rows whose frame f
+    starts at sample ``f * hop - left`` (the kernel reflects what lies
+    outside a row) -> ``(B, n_frames, n_mels)``, on the current stream."""
+    B, n_sig = wav.shape
     if B * n_frames >= 2**31:
         raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
-    win, tw1, tw2, melw, spans = _kernel_operands(cfg, wav_padded.device)
-    out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
+    win, tw1, tw2, melw, spans = _kernel_operands(cfg, wav.device)
+    out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav.device)
     fn = _kernel()
-    with torch.cuda.device(wav_padded.device):
+    with torch.cuda.device(wav.device):
         rc = fn(
-            wav_padded.data_ptr(),
+            wav.data_ptr(),
             win.data_ptr(),
             tw1.data_ptr(),
             tw2.data_ptr(),
@@ -242,26 +259,44 @@ def ct_mel(
             out.data_ptr(),
             B * n_frames,
             n_frames,
-            n_pad,
+            n_sig,
+            left,
             cfg.hop_length,
             cfg.n_mels,
-            torch.cuda.current_stream(wav_padded.device).cuda_stream,
+            torch.cuda.current_stream(wav.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"ct_mel kernel launch failed with CUDA error {rc}")
-    launches += 1
     return out
 
 
 def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
-    """``(..., n)`` raw waveforms -> ``(..., T, n_mels)`` through ``ct_mel``
-    with librosa's center reflect padding (``melspectrogram``'s CUDA route
-    at the parity profile)."""
+    """``(..., n)`` raw waveforms -> ``(..., T, n_mels)`` with librosa's
+    center padding (``melspectrogram``'s CUDA route at the parity profile).
+
+    On a CUDA tensor with reflect padding the kernel reads the raw rows and
+    reflects the edge frames' samples itself: bitwise ``ct_mel`` of the
+    padded rows, without the padded copy. Otherwise ``center_pad`` (under
+    the ``mel.pad`` span) and ``ct_mel``."""
+    global launches, reflect_launches
     lead, n = y.shape[:-1], y.shape[-1]
     n_frames = 1 + n // cfg.hop_length
-    with span("mel.pad"):
-        flat = center_pad(y.reshape(-1, n), cfg.n_fft, cfg.pad_mode)
-    mel = ct_mel(flat, cfg, n_frames=n_frames)
+    flat = y.reshape(-1, n)
+    if not flat.is_cuda or cfg.pad_mode != "reflect":
+        with span("mel.pad"):
+            padded = center_pad(flat, cfg.n_fft, cfg.pad_mode)
+        return ct_mel(padded, cfg, n_frames=n_frames).reshape(*lead, n_frames, cfg.n_mels)
+    _check(cfg, flat.dtype)
+    pad = cfg.n_fft // 2
+    if n <= pad:  # as F.pad's reflect mode refuses it
+        raise RuntimeError(
+            f"Padding size should be less than the corresponding input dimension, but got: "
+            f"padding ({pad}, {pad}) of an input of {n} samples"
+        )
+    refuse_grad(flat, "ct_mel")
+    mel = _launch(flat.contiguous(), cfg, n_frames, left=pad)
+    launches += 1
+    reflect_launches += 1
     return mel.reshape(*lead, n_frames, cfg.n_mels)
 
 

@@ -25,8 +25,10 @@ and names the card's idle gaps by span path;
   scale): the frontend's device ms a call.
 - ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``): the
   model's device ms a call.
-- ``mel.pad``: the center reflect pad before the mel kernels
-  (``ops/ct_mel.py``, ``ops/wave_mel.py``): the pad's device ms a call.
+- ``mel.pad``: the center pad before K1 (``ops/wave_mel.py``), and before
+  K3 where it is given padded rows (``ops/ct_mel.py``: a CPU tensor, or a
+  pad mode other than reflect; on the card K3 folds the reflect pad into
+  its frame addressing and opens none): the pad's device ms a call.
 - ``fused.gmm``: the GMM arm's masked LLR (``score/fused.py``): the GMMs'
   device ms a call.
 - ``serve.collect``: ``BatchingScorer`` gathering one dispatch after its

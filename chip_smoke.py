@@ -29,8 +29,11 @@ each print their lines:
 4. K3: ``ct_mel`` against ``ct_mel_reference`` and against K1's direct
    plain chain at parity (random B=8192, ragged 13, silence, length 32032,
    length 32001, whose odd padded rows take the 4-byte loads, 128 and 256
-   mels), its log-mel against the plain dB, its time against its plain
-   version, the library chain and K1 in turns, beside the bound;
+   mels), ``ct_mel_unpadded`` on the raw rows (the reflect pad folded into
+   K3's frame addressing) bitwise equal to it, its log-mel against the
+   plain dB, its time against its plain version, the library chain and K1
+   in turns, beside the bound; K3 on raw rows against ``center_pad`` + K3
+   and K3 on rows padded beforehand, in turns, at B=8192;
 5. K2: ``fused_mel_from_frames`` against its plain version in float32 and
    bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, with
    128 mels and at n_fft 100 off alignment, bf16 against f32, the times
@@ -136,7 +139,8 @@ each print their lines:
     on the card, their accuracies, best parameters and CSV equal to the
     same commands' with ``--device cpu``, K3's launches (their MFCC at 128
     mels) counted; (d) ``utils.StepTimer`` around a K3 call and a
-    ``device_trace`` file holding the ``mel.pad`` span and K3's kernel. No
+    ``device_trace`` file of ``ct_mel_unpadded`` (traced in a process of its
+    own) holding K3's kernel and no reflect-pad kernel. No
     TPU kernel is on this path (the JAX package runs scikit-learn on the
     host): plain PyTorch;
 16. the result: a JSON line of the kernels, then ``{"ok": true, ...}`` last.
@@ -515,6 +519,17 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((got - ref).abs() / peak).max())
 
 
+def extra_bytes(fn) -> int:
+    """Device memory ``fn()`` holds at its peak beyond what was allocated
+    before it (its output and transients)."""
+    free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def free() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -656,6 +671,10 @@ def phase_k3() -> dict:
         torch.cuda.synchronize()
         if got.shape != (batch, T, cfg.n_mels) or not torch.isfinite(got).all():
             raise AssertionError(f"K3 {case}: bad kernel output {tuple(got.shape)}")
+        raw, counts = run_counted(lambda: ctm.ct_mel_unpadded(wav, cfg))
+        if not torch.equal(raw, got) or counts["ct_mel.reflect"] != 1:
+            raise AssertionError(f"K3 {case}: on raw rows not bitwise K3 on padded rows ({counts})")
+        del raw
         ref = ctm.ct_mel_reference(padded, cfg, n_frames=T)
         rel_ct = rel_err(got, ref)
         max_abs = max(max_abs, float((got - ref).abs().max()))
@@ -697,6 +716,15 @@ def phase_k3() -> dict:
         library_rel_err=f"{lib_rel:.3e}", **bound_fields(t, bound))
     log("route", profile="parity", batch=BATCH, ct_mel_ms="%.3f,%.3f" % route["runs"],
         wave_mel_ms="%.3f,%.3f" % route["plain_runs"], routed=mel_route(cfg))
+    # the reflect pad folded into K3 against the pad as its own copy, and K3
+    # on rows padded beforehand (the edge frames' reflected loads alone)
+    raw = lambda: ctm.ct_mel_unpadded(wav, cfg)  # noqa: E731
+    pad_then_k3 = lambda: ctm.ct_mel(center_pad(wav, cfg.n_fft, cfg.pad_mode), cfg, n_frames=T)  # noqa: E731
+    fold = in_turns(raw, pad_then_k3, k3)
+    log("k3_raw", batch=BATCH, raw_ms=f"{fold['ms']:.3f}", pad_then_k3_ms=f"{fold['plain_ms']:.3f}",
+        k3_on_padded_ms=f"{fold['library_ms']:.3f}", raw_runs="%.3f,%.3f" % fold["runs"],
+        pad_then_k3_runs="%.3f,%.3f" % fold["plain_runs"], k3_on_padded_runs="%.3f,%.3f" % fold["library_runs"],
+        raw_extra_bytes=extra_bytes(raw), pad_then_k3_extra_bytes=extra_bytes(pad_then_k3))
     del wav, padded
     free()
     return {**t, **bound, "max_abs_err": max_abs, "k1_ms": route["plain_ms"]}
@@ -2753,14 +2781,30 @@ def classical_clis(card: dict, cpu: dict) -> int:
     return launches
 
 
-def classical_profiling(d: str) -> None:
-    """(d) ``StepTimer`` around one K3 call; ``device_trace`` of
-    ``ct_mel_unpadded``, whose file holds the ``mel.pad`` span and K3."""
-    from audioanalysisdetector_tpu_torch.utils import StepTimer, device_trace
+def _unpadded_trace(trace_dir: str) -> None:
+    """A ``device_trace`` of one warm ``ct_mel_unpadded`` call at B=8192.
+    It runs in a process of its own: in this one, once the SMO's CUDA
+    graphs have run, later traces lose kernel records (PERF.md §7)."""
+    from audioanalysisdetector_tpu_torch.utils import device_trace
 
     cfg = MelConfig.for_profile("parity", SR)
     wav = waves(BATCH, 155)
-    padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
+    ctm.ct_mel_unpadded(wav, cfg)
+    with device_trace(trace_dir):
+        ctm.ct_mel_unpadded(wav, cfg)
+
+
+def classical_profiling(d: str) -> None:
+    """(d) ``StepTimer`` around one K3 call; ``device_trace`` of
+    ``ct_mel_unpadded``, whose file holds K3 and no reflect-pad kernel (the
+    pad is folded into K3's frame addressing)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from audioanalysisdetector_tpu_torch.utils import StepTimer
+
+    cfg = MelConfig.for_profile("parity", SR)
+    padded = center_pad(waves(BATCH, 155), cfg.n_fft, cfg.pad_mode).contiguous()
     T = n_frames_for(N_SAMPLES, cfg.hop_length, cfg.n_fft, cfg.center)
     k3 = lambda: ctm.ct_mel(padded, cfg, n_frames=T)  # noqa: E731
     timer = StepTimer("ct_mel")
@@ -2769,18 +2813,18 @@ def classical_profiling(d: str) -> None:
             sync(k3())
     steps = timer.summary(items_per_step=BATCH)
     trace_dir = os.path.join(d, "trace")
-    with device_trace(trace_dir):
-        ctm.ct_mel_unpadded(wav, cfg)
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        pool.submit(_unpadded_trace, trace_dir).result()
     traces = os.listdir(trace_dir)
     names = set()
     for t in traces:
         with open(os.path.join(trace_dir, t)) as f:
             names.update(e.get("name", "") for e in json.load(f)["traceEvents"])
+    pads = sorted(n for n in names if "reflection_pad" in n)
     log("classical", part="d", step_timer_mean_ms=f"{steps['mean_ms']:.3f}", step_timer_p99_ms=f"{steps['p99_ms']:.3f}",
         trace_files=",".join(traces), trace_bytes=sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces),
-        mel_pad_span="mel.pad" in names, k3_in_trace=any("ct_mel_kernel" in n for n in names))
-    if not traces or not 0 < steps["mean_ms"] < 1e3 or "mel.pad" not in names \
-            or not any("ct_mel_kernel" in n for n in names):
+        pad_kernels=",".join(pads) or "none", k3_in_trace=any("ct_mel_kernel" in n for n in names))
+    if not traces or not 0 < steps["mean_ms"] < 1e3 or pads or not any("ct_mel_kernel" in n for n in names):
         raise AssertionError(f"profiling: {steps}, traces {traces}")
 
 

@@ -77,7 +77,9 @@ def test_train_cli_writes_the_run_dir(trained, capsys):
     d, seed = trained
     run, metrics, launches = _run_train(d, seed, capsys)
     assert set(metrics) == {"accuracy", "f1", "eer", "loss"} and np.isfinite(list(metrics.values())).all()
-    assert launches == {"wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0}  # the CPU: plain versions
+    assert launches == {
+        "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
+    }  # the CPU: plain versions
     assert {"best_model.msgpack", "best_model.msgpack.json", "worst_model.msgpack", "final_model.msgpack",
             "training_log.csv", "training_log.txt", "logs.json", "loss_curve.png",
             "accuracy_curve.png"} <= set(os.listdir(run))
@@ -120,7 +122,9 @@ def test_refuse_grad_raises_for_an_input_that_requires_grad():
     refuse_grad(x.detach(), "ct_mel")
 
 
-@pytest.mark.parametrize("wrapper", [wave_mel.wave_mel, ct_mel.ct_mel, fused_logmel.fused_mel_from_frames])
+@pytest.mark.parametrize(
+    "wrapper", [wave_mel.wave_mel, ct_mel.ct_mel, fused_logmel.fused_mel_from_frames, ct_mel.ct_mel_unpadded]
+)
 def test_each_wrapper_refuses_grad_before_its_launch(wrapper):
     """The check sits in the CUDA branch, before the launch (the card's
     ``chip_smoke.py`` train phase makes it raise there)."""

@@ -109,7 +109,9 @@ def test_xai_cli_maps_are_the_jax_attributions(corpus, tmp_path, monkeypatch, ca
         [f"u0_{k}.png" for k in ("saliency", "grad_cam", "integrated_gradients", "occlusion")]
         + ["gradcam_overlay.png", "explanation.html"])
     assert all(os.path.exists(p) for p in lines[1:])
-    assert _launches(err) == {"wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0}  # the CPU: plain versions
+    assert _launches(err) == {
+        "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
+    }  # the CPU: plain versions
 
     # the JAX attributions of the CLI's model (flax_init_ from seed 0) on the
     # JAX log-mel of the first file (bonafide/u0.wav)

@@ -94,12 +94,33 @@ def lane_filters(lane: int, n_mels: int) -> list[int]:
     return out
 
 
+def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The source's ``reflect``: i < 0 -> -i, i >= n -> 2 (n - 1) - i."""
+    return torch.where(i < 0, -i, torch.where(i >= n, 2 * (n - 1) - i, i))
+
+
+def kernel_frames(wav: torch.Tensor, hop: int, n_frames: int, left: int) -> tuple[torch.Tensor, int]:
+    """The kernel's load step on (B, n_sig) rows -> ((B * n_frames, 2048)
+    frames, edge frames a row): frame f starts at sample s = f * hop - left;
+    an interior frame (s >= 0, s + 2048 <= n_sig) reads its samples as they
+    lie; an edge frame reads sample j at org + reflect(d + j, m), with org =
+    max(s, 0), d = s - org and m = min(n_sig - org, 2048)."""
+    n_sig = wav.shape[1]
+    starts = torch.arange(n_frames) * hop - left
+    j = torch.arange(2048)
+    org = starts.clamp(min=0)[:, None]
+    m = (n_sig - org).clamp(max=2048)
+    edge = (starts < 0) | (starts + 2048 > n_sig)
+    idx = torch.where(edge[:, None], org + reflect(starts[:, None] - org + j, m), starts[:, None] + j)
+    return wav[:, idx].reshape(-1, 2048), int(edge.sum())
+
+
 def emulate(wp: torch.Tensor, cfg: tmel.MelConfig, n_frames: int) -> torch.Tensor:
     """The kernel's plan on (B, n_pad) center-padded float32 waveforms ->
     (B, n_frames, n_mels) mel power."""
     win, tw1, tw2, melw, spans = tct._kernel_operands(cfg, CPU)
     B = wp.shape[0]
-    frames = wp.unfold(-1, 2048, cfg.hop_length)[:, :n_frames].reshape(-1, 2048)
+    frames, _ = kernel_frames(wp, cfg.hop_length, n_frames, left=0)
     # lane a, register b: z[a + 32 b] = (x[2a + 64b], x[2a + 64b + 1]) * window pair
     x = (frames * win).reshape(-1, R, R, 2)  # (rows, b, a, pair)
     re_ = [x[:, b, :, 0] for b in range(R)]  # each (rows, lanes)
@@ -244,3 +265,25 @@ def test_mel_weight_rows_are_shared_by_the_lanes_of_a_step(n_mels):
     ranges.sort()
     assert all(a1 <= b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
     assert ranges[-1][1] == melw.shape[0] and melw.shape[1] == R
+
+
+def test_reflect_is_one_bounce_off_either_end():
+    """The source's index map is librosa's reflect pad: i < 0 -> -i, i >= n ->
+    2 (n - 1) - i (``reflect`` here replays it)."""
+    body = re.search(r"int reflect\(int i, int n\) \{\s*return (.*?);", SOURCE.read_text())
+    assert body.group(1) == "i < 0 ? -i : i >= n ? 2 * (n - 1) - i : i"
+
+
+@pytest.mark.parametrize("n", [1025, 1500, 2047, 8000, 32000, 32001])
+def test_load_step_on_raw_rows_is_center_pad(n):
+    """Raw rows at left = 1024 give bitwise the frames of the center-padded
+    rows at left = 0, where no frame reaches past a row; one bounce keeps
+    every index in the row (the launcher's check), and at 2 s the edge
+    frames are 0, 1, T-2 and T-1."""
+    hop, T = 512, 1 + n // 512
+    y = torch.from_numpy(np.random.default_rng(n).standard_normal((3, n)).astype(np.float32))
+    raw, edges = kernel_frames(y, hop, T, left=1024)
+    padded, none = kernel_frames(center_pad(y, 2048), hop, T, left=0)
+    assert none == 0 and torch.equal(raw, padded)
+    assert 1024 < n and (T - 1) * hop - 1024 + 2047 <= 2 * (n - 1)
+    assert edges == {1025: 3, 1500: 3, 2047: 4, 8000: 4, 32000: 4, 32001: 4}[n]

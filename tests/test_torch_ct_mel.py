@@ -21,6 +21,7 @@ from audioanalysisdetector_tpu.ops.ct_mel import ct_mel as j_ct_mel
 from audioanalysisdetector_tpu_torch.frontend import mel as tmel
 from audioanalysisdetector_tpu_torch.frontend.stft import center_pad
 from audioanalysisdetector_tpu_torch.ops import ct_mel as tct
+from audioanalysisdetector_tpu_torch.ops import launch_counts
 
 torch.set_num_threads(2)
 
@@ -83,6 +84,27 @@ def test_ct_mel_rejects_bad_shapes():
     before = tct.launches
     assert tct.ct_mel(wp, tmel.MelConfig(), n_frames=63).shape == (9, 63, 64)
     assert tct.launches == before  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("n", [1025, 2047, 32000, 32001])
+def test_cpu_unpadded_is_the_reference_on_center_pad(n):
+    """On the CPU ``ct_mel_unpadded`` pads with ``center_pad`` and runs the
+    plain version; the card's raw-input route launches nothing here."""
+    y = torch.from_numpy(_wave(3, n, seed=7))
+    cfg = tmel.MelConfig()
+    before = launch_counts()
+    got = tct.ct_mel_unpadded(y, cfg)
+    ref = tct.ct_mel_reference(center_pad(y, cfg.n_fft), cfg, n_frames=1 + n // cfg.hop_length)
+    assert torch.equal(got, ref)
+    assert launch_counts() == before and before["ct_mel.reflect"] == before["ct_mel"] == 0
+
+
+@pytest.mark.parametrize("n", [1024, 600])
+def test_unpadded_refuses_a_signal_reflect_cannot_pad(n):
+    """librosa's reflect pad needs n > n_fft // 2; the card's route raises the
+    same ``RuntimeError`` before any launch."""
+    with pytest.raises(RuntimeError, match="Padding size should be less"):
+        tct.ct_mel_unpadded(torch.zeros(2, n), tmel.MelConfig())
 
 
 def test_ct_log_mel_partial_batch_rows_equal_full():

@@ -163,7 +163,9 @@ def test_score_paths_and_cli_match_the_direct_scorer(corpus, checkpoint, capsys)
     np.testing.assert_allclose(got, direct, rtol=0, atol=SCORE_TOL)
     assert [line["label"] for line in lines] == [int(s > 0.5) for s in got]
     counts = json.loads(err.strip().splitlines()[-1])["kernel_launches"]
-    assert counts == {"wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0}  # CPU: no kernel
+    assert counts == {
+        "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
+    }  # CPU: no kernel
 
 
 def test_cli_score_allow_random_and_refusals(corpus, tmp_path, capsys):

@@ -87,7 +87,9 @@ def test_remote_scorer_roundtrip_and_contract():
         # the stats proxy reads the owner's GLOBAL counters and its launches
         snap = remote.stats.snapshot()
         assert snap["utterances"] == 6
-        assert snap["kernel_launches"] == {"wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0}
+        assert snap["kernel_launches"] == {
+            "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
+        }
         remote.close()
         with pytest.raises(RuntimeError):
             remote.score(rows)
