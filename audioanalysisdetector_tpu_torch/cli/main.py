@@ -1,6 +1,6 @@
 """Command-line entry points of the PyTorch port.
 
-  score          log-mel + CNN-BiLSTM spoof scoring over a directory of WAV/FLAC files
+  score          log-mel + CNN-BiLSTM (or SSL-AASIST) spoof scoring over WAV/FLAC files
   extract        feature extraction (mfcc/lfcc/cqcc/gtcc/wpt/mel_spectrogram/mfcc_deltas) to .npz
   augment        augmentation on the device: writes noise, pitch and shift WAVs
   serve          HTTP scoring service: dynamic micro-batching in front of the card
@@ -497,7 +497,9 @@ def cmd_xai(args) -> int:
 def cmd_score(args) -> int:
     """Stream-decode the files and score them on ``--device``: one JSON
     line per file on stdout, then the kernel launch counts of the run as one
-    JSON line on stderr."""
+    JSON line on stderr. ``--model xlsr-aasist`` scores with SSL-AASIST:
+    64,600 samples at 16 kHz, a short clip repeated to fill them
+    (``tile_pad``), and the bona fide logit as the score."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
     from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.score.e2e import (
@@ -510,7 +512,8 @@ def cmd_score(args) -> int:
         print(
             "score: no --checkpoint given — scores from randomly initialized "
             "weights are meaningless. Pass --checkpoint <best_model.msgpack> "
-            "(a JAX-saved payload) or <state_dict.pt> (torch.save), "
+            "(a JAX-saved payload) or <state_dict.pt> (torch.save; for "
+            "--model xlsr-aasist the published LA_model.pth), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -519,6 +522,8 @@ def cmd_score(args) -> int:
     if not paths:
         print(f"no WAV files under {args.audio}", file=sys.stderr)
         return 1
+    if args.model == "xlsr-aasist":
+        return _score_xlsr_aasist(args, paths)
     mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
     model = init_mel_cnn_bilstm(
         mel_cfg, int(args.seconds * args.sr), checkpoint=args.checkpoint,
@@ -530,6 +535,32 @@ def cmd_score(args) -> int:
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "spoof_score": float(s), "label": int(s > 0.5)}))
+    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return 0
+
+
+def _score_xlsr_aasist(args, paths: list[str]) -> int:
+    from audioanalysisdetector_tpu_torch.ops import launch_counts
+    from audioanalysisdetector_tpu_torch.score.e2e import (
+        XLSR_AASIST_SAMPLES,
+        XLSR_AASIST_SR,
+        init_xlsr_aasist,
+        make_xlsr_aasist_scorer,
+    )
+    from audioanalysisdetector_tpu_torch.score.streaming import score_paths
+
+    if args.sr != XLSR_AASIST_SR:
+        print(f"score: --model xlsr-aasist takes {XLSR_AASIST_SR} Hz audio, not --sr {args.sr}",
+              file=sys.stderr)
+        return 2
+    model = init_xlsr_aasist(checkpoint=args.checkpoint, device=args.device)
+    kept, scores = score_paths(
+        make_xlsr_aasist_scorer(model), paths, device=args.device,
+        seconds=XLSR_AASIST_SAMPLES / XLSR_AASIST_SR, sr=XLSR_AASIST_SR,
+        batch_size=args.batch_size, pad="tile",
+    )
+    for p, s in zip(kept, scores):
+        print(json.dumps({"file": p, "bonafide_logit": float(s)}))
     print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
@@ -864,9 +895,16 @@ def build_parser() -> argparse.ArgumentParser:
             "kernel: ct_mel at parity, wave_mel at speech)",
         )
 
-    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM spoof scoring")
+    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST) spoof scoring")
     sp.add_argument("audio", help="WAV/FLAC directory or glob")
     mel_flags(sp)
+    sp.add_argument(
+        "--model", choices=("cnn-bilstm", "xlsr-aasist"), default="cnn-bilstm",
+        help="cnn-bilstm: log-mel + CNN-BiLSTM, a spoof probability; "
+        "xlsr-aasist: SSL-AASIST (XLS-R 300M + AASIST) on 64,600 raw "
+        "samples, short clips repeated, the bona fide logit (--seconds and "
+        "the mel flags do not apply)",
+    )
     sp.add_argument(
         "--batch-size", type=int, default=512,
         help="streaming batch size (decode of batch k+1 overlaps device "

@@ -454,3 +454,78 @@ def random_diag_gmm(seed: int, n_components: int, dim: int) -> dict[str, np.ndar
         "means": rng.standard_normal((n_components, dim)).astype(np.float32),
         "variances": rng.uniform(0.5, 1.5, (n_components, dim)).astype(np.float32),
     }
+
+
+# the published SSL-AASIST state dict (github.com/TakHemlata/SSL_Anti-spoofing
+# model.py ``Model``, fairseq's ``Wav2Vec2Model`` under ``ssl_model.model``):
+# (published prefix, port prefix) for XLS-R, first match wins
+_XLSR_PREFIXES = (
+    ("feature_extractor.conv_layers.{i}.0.", "conv.convs.{i}."),
+    ("feature_extractor.conv_layers.{i}.2.1.", "conv.norms.{i}."),
+    ("layer_norm.", "feature_norm."),
+    ("post_extract_proj.", "proj."),
+    ("encoder.pos_conv.0.bias", "pos_conv.bias"),
+    ("encoder.layers.{i}.self_attn.q_proj.", "layers.{i}.q."),
+    ("encoder.layers.{i}.self_attn.k_proj.", "layers.{i}.k."),
+    ("encoder.layers.{i}.self_attn.v_proj.", "layers.{i}.v."),
+    ("encoder.layers.{i}.self_attn.out_proj.", "layers.{i}.out."),
+    ("encoder.layers.{i}.self_attn_layer_norm.", "layers.{i}.attn_norm."),
+    ("encoder.layers.{i}.fc1.", "layers.{i}.fc1."),
+    ("encoder.layers.{i}.fc2.", "layers.{i}.fc2."),
+    ("encoder.layers.{i}.final_layer_norm.", "layers.{i}.ffn_norm."),
+    ("encoder.layer_norm.", "norm."),
+)
+# pre-training only: the mask embedding, the quantizer and its projections
+_XLSR_UNUSED = ("mask_emb", "quantizer.", "project_q.", "final_proj.")
+
+
+def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The weight that fairseq's ``weight_norm(pos_conv, dim=2)`` computes
+    from its ``weight_g`` and ``weight_v``: ``g * v / ||v||``, the norm over
+    every axis but the kernel's (2)."""
+    return g * v / torch.linalg.vector_norm(v, dim=(0, 1), keepdim=True)
+
+
+def _xlsr_name(name: str) -> str | None:
+    """The port's name (under ``xlsr.``) of a published ``Wav2Vec2Model``
+    tensor, or None for one inference does not use."""
+    if name.startswith(_XLSR_UNUSED):
+        return None
+    parts = name.split(".")
+    index = next((p for p in parts if p.isdigit()), None)
+    for pub, port in _XLSR_PREFIXES:
+        pub = pub.format(i=index)
+        if name == pub or (pub.endswith(".") and name.startswith(pub)):
+            return "xlsr." + port.format(i=index) + name[len(pub):]
+    raise KeyError(f"no port tensor for the published XLS-R tensor {name!r}")
+
+
+def ssl_aasist_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The published SSL-AASIST ``Model.state_dict()`` (``LA_model.pth``; its
+    keys under ``module.`` when saved from ``nn.DataParallel``, as the
+    published training script saves it) -> ``models.aasist.SSLAASIST``'s.
+
+    XLS-R's tensors map by ``_XLSR_PREFIXES``; the positional conv's weight
+    norm (``weight_g`` over dim 2, ``weight_v``) is folded into one weight
+    (``fold_weight_norm``); the pre-training tensors are dropped. The back
+    end keeps its names under ``aasist.``, but ``encoder.<i>.0.`` (a
+    ``Sequential`` of one block there) becomes ``encoder.<i>.``."""
+    state = {k.removeprefix("module."): v for k, v in state.items()}
+    ssl = "ssl_model.model."
+    out: dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        if name.startswith(ssl):
+            sub = name[len(ssl):]
+            if sub in ("encoder.pos_conv.0.weight_g", "encoder.pos_conv.0.weight_v"):
+                continue
+            port = _xlsr_name(sub)
+            if port is not None:
+                out[port] = t
+        else:
+            parts = name.split(".")
+            if parts[0] == "encoder" and len(parts) > 3 and parts[2] == "0":
+                del parts[2]
+            out["aasist." + ".".join(parts)] = t
+    pos = ssl + "encoder.pos_conv.0."
+    out["xlsr.pos_conv.weight"] = fold_weight_norm(state[pos + "weight_g"], state[pos + "weight_v"])
+    return out

@@ -1,7 +1,9 @@
 """Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
 classifier, the diagonal GMM (scoring, EM, MAP), their LSTM layers, the
-anti-spoofing ResNet family and MobileNetV2 + MFCA."""
+anti-spoofing ResNet family, MobileNetV2 + MFCA, and SSL-AASIST (the XLS-R
+front end and the AASIST graph-attention back end)."""
 
+from audioanalysisdetector_tpu_torch.models.aasist import AASIST, SSLAASIST
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import (
@@ -32,8 +34,10 @@ from audioanalysisdetector_tpu_torch.models.resnet import (
     ResidualBlock,
     ResNetTrunk,
 )
+from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, XLSRConfig
 
 __all__ = [
+    "AASIST",
     "AntiSpoofingResNet",
     "BiLSTM",
     "BiLSTMClassifier",
@@ -47,6 +51,9 @@ __all__ = [
     "MoreFeaturesClassifier",
     "ResNetTrunk",
     "ResidualBlock",
+    "SSLAASIST",
+    "XLSR",
+    "XLSRConfig",
     "component_log_prob",
     "compute_llr",
     "fit_em",

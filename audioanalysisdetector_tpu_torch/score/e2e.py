@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``score/e2e.py``: log-mel (a hand-written
 mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof probability, and the
 flagship CQCC -> GMM ⊕ BiLSTM fused scorer, with nothing on the host
-between the waveform upload and the ``(B,)`` scores.
+between the waveform upload and the ``(B,)`` scores. The port alone also
+scores with SSL-AASIST (``models/aasist.py``): 64,600 raw samples -> XLS-R
+-> AASIST -> the bona fide logit.
 """
 
 from __future__ import annotations
@@ -16,10 +18,16 @@ import torch
 from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc, transpose_cqcc
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
 from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
+from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
 from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
 from audioanalysisdetector_tpu_torch.utils.profiling import span
+
+# SSL-AASIST's input: 64,600 samples (4.04 s) at 16 kHz, the published
+# ``pad`` length (score/streaming.py::tile_pad)
+XLSR_AASIST_SR = 16000
+XLSR_AASIST_SAMPLES = 64600
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -153,6 +161,86 @@ def make_cqcc_fused_scorer(
                     feats = (feats - scale[0]) / scale[1]
             with span("score.model"):
                 return fused_scores(model, gmm_genuine, gmm_spoof, feats)
+
+    return score
+
+
+def _init_ssl_aasist(model: SSLAASIST, generator: torch.Generator) -> None:
+    """Initialisation scales of the published code, drawn from ``generator``:
+    fairseq's for XLS-R (Kaiming normal conv encoder, ``init_bert_params``
+    N(0, 0.02) for the transformer's linear layers with zero biases, the
+    positional conv N(0, sqrt(4 / (k * hidden))) with zero bias), torch's
+    defaults for ``proj`` and the back end (uniform +-1/sqrt(fan_in),
+    Xavier-normal attention weights, N(0, 1) ``pos_S`` and master nodes);
+    norms keep weight 1, bias 0 and unit running statistics."""
+    xlsr, cfg = model.xlsr, model.xlsr.cfg
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)):
+                bound = mod.weight[0].numel() ** -0.5
+                mod.weight.uniform_(-bound, bound, generator=generator)
+                mod.bias.uniform_(-bound, bound, generator=generator)
+        for conv in xlsr.conv.convs:
+            conv.weight.normal_(0.0, (2.0 / conv.weight[0].numel()) ** 0.5, generator=generator)
+        for layer in xlsr.layers:
+            for lin in (layer.q, layer.k, layer.v, layer.out, layer.fc1, layer.fc2):
+                lin.weight.normal_(0.0, 0.02, generator=generator)
+                lin.bias.zero_()
+        xlsr.pos_conv.weight.normal_(0.0, (4.0 / (cfg.pos_kernel * cfg.hidden)) ** 0.5, generator=generator)
+        xlsr.pos_conv.bias.zero_()
+        for name, p in model.aasist.named_parameters():
+            if name.startswith(("pos_S", "master")):
+                p.normal_(generator=generator)
+            elif "att_weight" in name:
+                p.normal_(0.0, (2.0 / (p.shape[0] + 1)) ** 0.5, generator=generator)
+
+
+def init_xlsr_aasist(
+    *,
+    checkpoint: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> SSLAASIST:
+    """SSL-AASIST at its published widths in eval mode on ``device``.
+
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` at the
+    published initialisation scales. With ``checkpoint`` — the published
+    ``Model.state_dict()`` (``LA_model.pth``; converted by
+    ``convert.ssl_aasist_to_port``) or a ``torch.save`` state dict of this
+    model — its tensors replace them and must fit exactly."""
+    from audioanalysisdetector_tpu_torch.convert import ssl_aasist_to_port
+
+    model = SSLAASIST()
+    _init_ssl_aasist(model, torch.Generator().manual_seed(seed))
+    if checkpoint:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if any(k.startswith(("ssl_model.", "module.ssl_model.")) for k in state):
+            state = ssl_aasist_to_port(state)
+        model.load_state_dict(state)
+    return model.to(device).eval()
+
+
+def make_xlsr_aasist_scorer(model: SSLAASIST) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, 64600) -> (B,)`` bona fide logits (``logits[:, 1]``, the score
+    the published ``produce_evaluation_file`` writes), on the model's
+    device, under ``torch.inference_mode()`` with TF32 off (``ieee_fp32``).
+    Spans: ``xlsr.features`` and ``xlsr.encoder`` inside ``score.frontend``,
+    ``aasist.graph`` (node sets to readout) inside ``score.model``."""
+    ieee_fp32()
+    model.eval()
+
+    @torch.inference_mode()
+    def score(wav: torch.Tensor) -> torch.Tensor:
+        with span("score.call"):
+            with span("score.frontend"):
+                with span("xlsr.features"):
+                    feats = model.xlsr.features(wav)
+                with span("xlsr.encoder"):
+                    feats = model.xlsr.encode(feats)
+            with span("score.model"):
+                x = model.aasist.encode(feats)
+                with span("aasist.graph"):
+                    return model.aasist.graph(x)[:, 1]
 
     return score
 

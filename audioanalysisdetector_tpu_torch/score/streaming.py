@@ -13,6 +13,7 @@ normal exhaustion all set the cancellation event and drain the queue
 
 from __future__ import annotations
 
+import math
 import queue
 import sys
 import threading
@@ -22,12 +23,35 @@ import numpy as np
 import torch
 
 
+def _decoded_length(path: str, sr: int) -> int:
+    """Samples of the whole file at ``sr``: its frames, or the length the
+    polyphase resampler (``io.audio.resample_poly_host``) gives them."""
+    from audioanalysisdetector_tpu_torch.io.audio import audio_info
+
+    info = audio_info(path)
+    if info.samplerate == sr:
+        return info.frames
+    g = math.gcd(sr, info.samplerate)
+    return -(-info.frames * (sr // g) // (info.samplerate // g))
+
+
+def tile_pad(row: np.ndarray, length: int) -> np.ndarray:
+    """SSL_Anti-spoofing's ``pad`` on a decoded row whose clip holds
+    ``length`` samples: a clip at least as long as the row is cut to it (the
+    row already is), a shorter one is repeated until it fills the row."""
+    n = row.shape[-1]
+    if 0 < length < n:
+        row[:] = np.tile(row[:length], -(-n // length))[:n]
+    return row
+
+
 def stream_decode_batches(
     paths: list[str],
     *,
     seconds: float = 2.0,
     sr: int = 16000,
     batch_size: int = 512,
+    pad: str = "zeros",
     warn_stream=None,
 ) -> Iterator[tuple[list[str], np.ndarray]]:
     """Yield ``(kept_paths, (len(kept_paths), n) float32)`` decode batches.
@@ -36,9 +60,14 @@ def stream_decode_batches(
     unreadable rows are dropped with a warning (the reference's
     failure->skip policy). Unlike the JAX package, the tail batch is not
     padded to ``batch_size``: the kernels take any batch and nothing is
-    compiled per shape.
+    compiled per shape. A clip shorter than ``seconds`` is filled with
+    zeros (``pad="zeros"``, the mel recipe) or repeated (``pad="tile"``,
+    SSL-AASIST's ``tile_pad``).
     """
     from audioanalysisdetector_tpu_torch.io.native_loader import load_chunk_batch_native
+
+    if pad not in ("zeros", "tile"):
+        raise ValueError(f"pad must be 'zeros' or 'tile', got {pad!r}")
 
     warn_stream = warn_stream if warn_stream is not None else sys.stderr
     q: queue.Queue = queue.Queue(maxsize=2)
@@ -76,7 +105,11 @@ def stream_decode_batches(
                 kept = [p for p, good in zip(chunk, ok) if good]
                 if len(kept) == 0:
                     continue
-                if not _put((kept, out[ok])):
+                rows = out[ok]
+                if pad == "tile":
+                    for row, p in zip(rows, kept):
+                        tile_pad(row, _decoded_length(p, sr))
+                if not _put((kept, rows)):
                     return
         except BaseException as e:  # noqa: BLE001 — forwarded to the consumer
             _put(e)
@@ -113,6 +146,7 @@ def score_paths(
     seconds: float = 2.0,
     sr: int = 16000,
     batch_size: int = 512,
+    pad: str = "zeros",
 ) -> tuple[list[str], np.ndarray]:
     """Score audio files through a batch scorer, streaming.
 
@@ -122,12 +156,13 @@ def score_paths(
     score vectors are copied to the host only after every batch has been
     dispatched, so uploads and device compute overlap without per-batch
     synchronisation. Returns ``(kept_paths, scores)`` aligned; unreadable
-    files are skipped.
+    files are skipped. ``pad``: how a short clip fills its row
+    (``stream_decode_batches``).
     """
     device = torch.device(device)
     pending: list[tuple[list[str], torch.Tensor]] = []
     for kept, batch_np in stream_decode_batches(
-        paths, seconds=seconds, sr=sr, batch_size=batch_size
+        paths, seconds=seconds, sr=sr, batch_size=batch_size, pad=pad
     ):
         pending.append((kept, scorer(torch.from_numpy(batch_np).to(device))))
     all_paths: list[str] = []

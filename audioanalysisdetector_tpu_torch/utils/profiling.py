@@ -22,9 +22,16 @@ and names the card's idle gaps by span path;
   completed in a window divide every per-call reading, and its device
   operations are the launches a call.
 - ``score.frontend``: the scorer's features (log-mel; CQCC, transpose and
-  scale): the frontend's device ms a call.
-- ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``): the
-  model's device ms a call.
+  scale; XLS-R): the frontend's device ms a call.
+- ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``;
+  AASIST): the model's device ms a call.
+- ``xlsr.features``, ``xlsr.encoder``: SSL-AASIST's frontend in two
+  (the conv feature encoder and projection; the positional conv, the 24
+  transformer layers and the final LayerNorm), inside ``score.frontend``:
+  each half's device ms a call.
+- ``aasist.graph``: AASIST from its node sets to the readout (graph
+  attention, pools, both branches), inside ``score.model``: the graph
+  layers' device ms a call.
 - ``mel.pad``: the center pad before K1 (``ops/wave_mel.py``), and before
   K3 where it is given padded rows (``ops/ct_mel.py``: a CPU tensor, or a
   pad mode other than reflect; on the card K3 folds the reflect pad into
