@@ -8,10 +8,11 @@ CQCC ``(B, T, F)`` (F = 19 after ``transpose_cqcc``).
 
 The reference reads ``out[:, -1, :]``, the *final padded* timestep, exact
 for the fixed-length 2-s chunks it trains on. With ``lengths`` each
-sequence's true last step is read instead. The JAX package computes only
-position T-1 of the second BiLSTM in the fixed-length readout; the port's
-``torch.nn.LSTM`` output at T-1 is the same value. Dropout draws its masks
-from the ``generator`` handed to ``forward`` (``models.layers.Dropout``).
+sequence's true last step is read instead. The fixed-length readout
+computes only position T-1 of the second BiLSTM, as the JAX package does:
+its forward scan and one backward cell step (``BiLSTM(last_only=True)``).
+Dropout draws its masks from the ``generator`` handed to ``forward``
+(``models.layers.Dropout``).
 """
 
 from __future__ import annotations

@@ -3,18 +3,27 @@
 Counterpart of the JAX package's ``models/lstm.py``. The JAX layers
 were built 1:1 with ``torch.nn.LSTM`` (gate order ``[i, f, g, o]``,
 ``weight_ih (4H, I)``, ``weight_hh (4H, H)``, two biases, zero initial
-state), so fixed-length batches run ``torch.nn.LSTM`` itself (cuDNN on the
-card). Ragged batches (``lengths``) keep the JAX contract: the backward
-direction consumes each row's TRUE sequence reversed, and its output is
-zero past each row's length, while the forward direction runs over the
-whole padded row.
+state), so the full output of a fixed-length batch is ``torch.nn.LSTM``'s
+own (cuDNN on the card). Ragged batches (``lengths``) keep the JAX
+contract: the backward direction consumes each row's TRUE sequence
+reversed, and its output is zero past each row's length, while the forward
+direction runs over the whole padded row.
+
+``last_only`` computes what the JAX package computes for position T-1, and
+nothing else: the forward direction over all T steps (the functional LSTM
+on the module's forward tensors, cuDNN on the card) and the backward
+direction's first step from the zero state on ``x[:, -1]`` (one cell
+evaluation on the ``_reverse`` tensors). Both read the module's parameters
+at each call; the state-dict keys are ``torch.nn.LSTM``'s.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch import _VF, nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 _LAST_ONLY_RAGGED = (
     "last_only only supports fixed-length batches; ragged rows need the "
@@ -70,8 +79,8 @@ class LSTMLayer(nn.Module):
 class BiLSTM(nn.Module):
     """Bidirectional LSTM: ``(B, T, I) -> (B, T, 2H)`` (fwd ++ bwd).
 
-    One ``torch.nn.LSTM(bidirectional=True)``; its ``_reverse`` tensors are
-    the JAX ``bwd`` layer's."""
+    One ``torch.nn.LSTM(bidirectional=True)`` holds the weights; its
+    ``_reverse`` tensors are the JAX ``bwd`` layer's."""
 
     def __init__(self, input_size: int, hidden: int):
         super().__init__()
@@ -89,9 +98,10 @@ class BiLSTM(nn.Module):
         batches only) just position T-1, ``(B, 2H)``."""
         if last_only and lengths is not None:
             raise ValueError(_LAST_ONLY_RAGGED)
-        out, _ = self.lstm(x)
         if last_only:
-            return out[:, -1]
+            with span("lstm.last_only"):
+                return self._last(x)
+        out, _ = self.lstm(x)
         if lengths is None:
             return out
         # backward half over each row's true sequence: a packed run reverses
@@ -104,3 +114,24 @@ class BiLSTM(nn.Module):
         )
         H = self.hidden
         return torch.cat([out[..., :H], ragged[..., H:]], dim=-1)
+
+    def _last(self, x: torch.Tensor) -> torch.Tensor:
+        """Position T-1 of the full output: the forward direction's last
+        step, and the backward direction's first step from the zero state,
+        which reads ``x[:, -1]`` alone. The backward cell keeps its
+        ``h0 @ W_hh`` term so ``weight_hh_l0_reverse`` gets the zero
+        gradient the full output gives it, not none."""
+        lstm = self.lstm
+        h0 = x.new_zeros(1, x.shape[0], self.hidden)
+        fwd = [lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0, lstm.bias_hh_l0]
+        # one chunk in cuDNN's order for one direction: the module's flat
+        # buffer interleaves the two directions, and cuDNN would compact the
+        # four tensors itself and warn on every call
+        flat = torch.cat([p.reshape(-1) for p in fwd]).split([p.numel() for p in fwd])
+        fwd = [v.view_as(p) for v, p in zip(flat, fwd)]
+        _, h_fwd, _ = _VF.lstm(x, (h0, h0), fwd, True, 1, 0.0, lstm.training, False, True)
+        h_bwd, _ = torch.lstm_cell(
+            x[:, -1], (h0[0], h0[0]), lstm.weight_ih_l0_reverse, lstm.weight_hh_l0_reverse,
+            lstm.bias_ih_l0_reverse, lstm.bias_hh_l0_reverse,
+        )
+        return torch.cat([h_fwd[0], h_bwd], dim=-1)

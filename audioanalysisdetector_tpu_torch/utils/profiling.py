@@ -38,6 +38,10 @@ and names the card's idle gaps by span path;
   its frame addressing and opens none): the pad's device ms a call.
 - ``fused.gmm``: the GMM arm's masked LLR (``score/fused.py``): the GMMs'
   device ms a call.
+- ``lstm.last_only``: ``models/lstm.py::BiLSTM`` computing position T-1
+  alone (the forward scan and one backward cell step): the second BiLSTM of
+  ``BiLSTMClassifier``, one a fused scorer call inside ``score.model``, none
+  in the mel scorer: that layer's device ms a call.
 - ``serve.collect``: ``BatchingScorer`` gathering one dispatch after its
   first slice arrived, on the batcher's thread: the host gaps of a
   serving trace.

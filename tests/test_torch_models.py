@@ -100,6 +100,47 @@ def test_bilstm_matches_jax(mode):
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("t", [1, 2, 7])
+@pytest.mark.parametrize("i", [3, 16])
+def test_bilstm_last_only_is_the_full_output_at_t_minus_1(t, i):
+    h = 5
+    torch.manual_seed(7)
+    bi = BiLSTM(i, h).double()
+    x = torch.randn(4, t, i, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(4, 2 * h, dtype=torch.float64)
+
+    def value_and_grads(last_only):
+        bi.zero_grad(set_to_none=True)
+        x.grad = None
+        out = bi(x, last_only=True) if last_only else bi(x)[:, -1]
+        (out * w).sum().backward()
+        return out.detach(), [x.grad] + [p.grad for p in bi.lstm.parameters()]
+
+    last, g_last = value_and_grads(True)
+    full, g_full = value_and_grads(False)
+    assert last.shape == (4, 2 * h)
+    torch.testing.assert_close(last, full, rtol=0, atol=1e-12)
+    assert len(g_last) == 9 and all(g is not None for g in g_last)
+    for a, b in zip(g_last, g_full):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+    # the backward half reads x[:, -1] alone
+    with torch.no_grad():
+        last = bi(x, last_only=True)  # the cell rounds otherwise under grad mode
+        moved = x.detach().clone()
+        moved[:, :-1] += 1.0
+        assert torch.equal(bi(moved, last_only=True)[:, h:], last[:, h:])
+
+    ref = torch.nn.LSTM(i, h, bidirectional=True, batch_first=True)
+    assert list(bi.state_dict()) == [f"lstm.{k}" for k in ref.state_dict()]
+
+    other = BiLSTM(i, h).double()
+    with torch.no_grad():
+        assert not torch.equal(other(x, last_only=True), last)
+        other.load_state_dict(bi.state_dict())
+        assert torch.equal(other(x, last_only=True), last)
+
+
 def test_last_only_refuses_ragged_input():
     lengths = torch.from_numpy(LENGTHS)
     with pytest.raises(ValueError, match="last_only"):

@@ -78,8 +78,12 @@ def test_span_off_is_the_shared_noop():
     assert [s[0] for s in _spans(prof)] == ["on.span"]
 
 
-@pytest.mark.parametrize("make,inner", [(_mel_scorer, []), (_fused_scorer, ["fused.gmm"])], ids=["mel", "fused"])
-def test_scorer_spans_nest(make, inner):
+@pytest.mark.parametrize(
+    "make,inner,absent",
+    [(_mel_scorer, [], ["lstm.last_only"]), (_fused_scorer, ["fused.gmm", "lstm.last_only"], [])],
+    ids=["mel", "fused"],
+)
+def test_scorer_spans_nest(make, inner, absent):
     score = make()
     wav = _wav(2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -93,8 +97,10 @@ def test_scorer_spans_nest(make, inner):
     for name in ["score.frontend", "score.model"] + inner:
         found = _named(spans, name)
         assert len(found) == 2 and all(any(_inside(s, c) for c in calls) for s in found), name
-    for gmm in _named(spans, "fused.gmm"):
-        assert any(_inside(gmm, m) for m in _named(spans, "score.model"))
+    for name in inner:
+        assert all(any(_inside(s, m) for m in _named(spans, "score.model")) for s in _named(spans, name)), name
+    for name in absent:
+        assert not _named(spans, name), name
     front, model = _named(spans, "score.frontend"), _named(spans, "score.model")
     assert all(f[2] <= m[1] for f, m in zip(front, model))  # frontend, then model
 
