@@ -96,7 +96,6 @@ def cmd_train(args) -> int:
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
     from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
     from audioanalysisdetector_tpu_torch.models.layers import flax_init_
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed
     from audioanalysisdetector_tpu_torch.train import TrainState, evaluate, fit, make_optimizer
     from audioanalysisdetector_tpu_torch.train.loop import would_use_dp
@@ -129,7 +128,6 @@ def cmd_train(args) -> int:
         result.best_state, (feats[split:], y[split:]), loss_name="BCELoss", binary_head=True
     )
     print(json.dumps(metrics))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -338,7 +336,6 @@ def cmd_train_3features(args) -> int:
     from audioanalysisdetector_tpu_torch.frontend.cepstral import CepstralConfig, gfcc
     from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc
     from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig, mfcc
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.train.sweep import train_3features
 
     paths = _collect_wavs(args.audio)
@@ -366,7 +363,6 @@ def cmd_train_3features(args) -> int:
         out_dir=args.run_dir, seed=args.seed, device=args.device,
     )
     print(json.dumps(out["best"]))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -378,7 +374,6 @@ def cmd_train_mfca(args) -> int:
     import torch
 
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.train.sweep import train_mfca
 
     paths = _collect_wavs(args.audio)
@@ -398,7 +393,6 @@ def cmd_train_mfca(args) -> int:
         out_dir=args.run_dir, seed=args.seed, device=args.device,
     )
     print(json.dumps(out["best"]))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -415,7 +409,6 @@ def cmd_xai(args) -> int:
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram
     from audioanalysisdetector_tpu_torch.models.layers import flax_init_
     from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.score.fused import ieee_fp32
     from audioanalysisdetector_tpu_torch.xai import (
         grad_cam,
@@ -490,7 +483,6 @@ def cmd_xai(args) -> int:
         ))
     if out:
         print("\n".join(out))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -501,7 +493,6 @@ def cmd_score(args) -> int:
     64,600 samples at 16 kHz, a short clip repeated to fill them
     (``tile_pad``), and the bona fide logit as the score."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
         make_mel_cnn_bilstm_scorer,
@@ -535,12 +526,10 @@ def cmd_score(args) -> int:
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "spoof_score": float(s), "label": int(s > 0.5)}))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
 def _score_xlsr_aasist(args, paths: list[str]) -> int:
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.score.e2e import (
         XLSR_AASIST_SAMPLES,
         XLSR_AASIST_SR,
@@ -561,7 +550,6 @@ def _score_xlsr_aasist(args, paths: list[str]) -> int:
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "bonafide_logit": float(s)}))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -574,7 +562,6 @@ def cmd_extract(args) -> int:
     import torch
 
     from audioanalysisdetector_tpu_torch.data.pipeline import default_extractors
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.score.streaming import stream_decode_batches
 
     paths = _collect_wavs(args.audio)
@@ -604,7 +591,6 @@ def cmd_extract(args) -> int:
     feats = np.concatenate(host_parts)
     np.savez(args.output, features=feats, files=np.asarray(kept_all))
     print(f"wrote {feats.shape} {args.feature} features to {args.output}")
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -644,7 +630,6 @@ def cmd_classical(args) -> int:
     sample caps, 6-feature extraction incl. formants, dict expansion,
     PCA+SVC / PCA+HGB grids with the pipeline cache, on ``--device``. The
     result is one JSON line; the kernel launch counts go to stderr."""
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.train.classical import classical_main
 
     all_data = {}
@@ -688,7 +673,6 @@ def cmd_classical(args) -> int:
         print(f"classical: {e}", file=sys.stderr)
         return 1
     print(json.dumps(out))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -698,7 +682,6 @@ def cmd_gridsearch(args) -> int:
     ``--output-dir``); print the top rows, one JSON line each. The kernel
     launch counts go to stderr."""
     from audioanalysisdetector_tpu_torch.data.pipeline import extract_features
-    from audioanalysisdetector_tpu_torch.ops import launch_counts
     from audioanalysisdetector_tpu_torch.train.classical import (
         expand_feature_columns,
         run_extensive_gridsearch,
@@ -725,7 +708,6 @@ def cmd_gridsearch(args) -> int:
     )
     for row in (full or [])[: args.top_k]:
         print(json.dumps(row, default=str))
-    print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
     return 0
 
 
@@ -918,7 +900,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--allow-random", action="store_true",
         help="score with randomly initialized weights (smoke tests only)",
     )
-    sp.set_defaults(fn=cmd_score)
+    sp.set_defaults(fn=cmd_score, report_launches=True)
 
     def clip_flags(sp):
         sp.add_argument("audio", help="WAV/FLAC directory or glob")
@@ -932,7 +914,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--feature", default="cqcc")
     sp.add_argument("--output", default="features.npz")
     sp.add_argument("--batch-size", type=int, default=512)
-    sp.set_defaults(fn=cmd_extract)
+    sp.set_defaults(fn=cmd_extract, report_launches=True)
 
     sp = sub.add_parser("augment", help="augmentation on the device: writes augmented WAVs")
     clip_flags(sp)
@@ -950,7 +932,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--lr", type=float, default=1e-4)
     sp.add_argument("--optimizer", default="Adam", help="Adam, AdamW, SGD or RMSprop")
     sp.add_argument("--run-dir", default="runs/cnn_bilstm")
-    sp.set_defaults(fn=cmd_train)
+    sp.set_defaults(fn=cmd_train, report_launches=True)
 
     def device_flag(sp):
         sp.add_argument("--device", default="cuda", help="torch device the run uses")
@@ -1036,7 +1018,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=16)
     sp.add_argument("--lr", type=float, default=1e-4)
     sp.add_argument("--run-dir", default="runs/MoreFeatures")
-    sp.set_defaults(fn=cmd_train_3features)
+    sp.set_defaults(fn=cmd_train_3features, report_launches=True)
 
     sp = sub.add_parser("train-mfca", help="MobileNetV2+MFCA on log-mel")
     clip_flags(sp)
@@ -1045,7 +1027,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=32)
     sp.add_argument("--lr", type=float, default=1e-4)
     sp.add_argument("--run-dir", default="runs/MobileNet-MFCA")
-    sp.set_defaults(fn=cmd_train_mfca)
+    sp.set_defaults(fn=cmd_train_mfca, report_launches=True)
 
     sp = sub.add_parser("xai", help="attribution heatmaps for one WAV")
     clip_flags(sp)
@@ -1057,7 +1039,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--lime-perturbations", type=int, default=30)
     sp.add_argument("--html", action="store_true",
                     help="also write a self-contained explanation.html")
-    sp.set_defaults(fn=cmd_xai)
+    sp.set_defaults(fn=cmd_xai, report_launches=True)
 
     sp = sub.add_parser(
         "serve", help="HTTP scoring service with dynamic micro-batching"
@@ -1124,7 +1106,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--cache-dir", default=None,
         help="directory caching fitted pipeline prefixes across the sweep",
     )
-    sp.set_defaults(fn=cmd_gridsearch)
+    sp.set_defaults(fn=cmd_gridsearch, report_launches=True)
 
     sp = sub.add_parser(
         "classical",
@@ -1149,13 +1131,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--cache-dir", default=None)
     sp.add_argument("--seed", type=int, default=42)
     device_flag(sp)
-    sp.set_defaults(fn=cmd_classical)
+    sp.set_defaults(fn=cmd_classical, report_launches=True)
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
+    """Run the chosen command; after a command that sets ``report_launches``
+    returns 0, print the process's kernel launch counts
+    (``ops.launch_counts``) as one JSON line on stderr."""
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    rc = args.fn(args)
+    if rc == 0 and getattr(args, "report_launches", False):
+        from audioanalysisdetector_tpu_torch.ops import launch_counts
+
+        print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+    return rc
 
 
 if __name__ == "__main__":

@@ -13,8 +13,10 @@ direction runs over the whole padded row.
 nothing else: the forward direction over all T steps (the functional LSTM
 on the module's forward tensors, cuDNN on the card) and the backward
 direction's first step from the zero state on ``x[:, -1]`` (one cell
-evaluation on the ``_reverse`` tensors). Both read the module's parameters
-at each call; the state-dict keys are ``torch.nn.LSTM``'s.
+evaluation, ``_first_backward_step``). Both read the module's parameters
+at each call; the state-dict keys are ``torch.nn.LSTM``'s. The forward
+scan calls ``torch._VF.lstm``, a private API (it passed on torch 2.13 on
+the CPU and 2.11 on the card).
 """
 
 from __future__ import annotations
@@ -42,6 +44,19 @@ def _reverse_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, :, None], gathered, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _first_backward_step(x: torch.Tensor, lstm: nn.LSTM, suffix: str = "") -> torch.Tensor:
+    """The backward direction's output at T-1, ``(B, H)``: its first step
+    from the zero state, which reads ``x[:, -1]`` alone, on ``lstm``'s
+    ``*_l0{suffix}`` tensors. The cell keeps its ``h0 @ W_hh`` term so
+    ``weight_hh`` gets the zero gradient the full output gives it, not none."""
+    h0 = x.new_zeros(x.shape[0], lstm.hidden_size)
+    h, _ = torch.lstm_cell(
+        x[:, -1], (h0, h0), getattr(lstm, f"weight_ih_l0{suffix}"), getattr(lstm, f"weight_hh_l0{suffix}"),
+        getattr(lstm, f"bias_ih_l0{suffix}"), getattr(lstm, f"bias_hh_l0{suffix}"),
+    )
+    return h
+
+
 class LSTMLayer(nn.Module):
     """Unidirectional LSTM over ``(B, T, I) -> (B, T, H)``; ``reverse`` runs
     it backward in time."""
@@ -65,10 +80,7 @@ class LSTMLayer(nn.Module):
             out, _ = self.lstm(x)
             return out[:, -1] if last_only else out
         if last_only:
-            # the backward direction's value at T-1 is its first step from
-            # the zero state
-            out, _ = self.lstm(x[:, -1:])
-            return out[:, 0]
+            return _first_backward_step(x, self.lstm)
         if lengths is None:
             out, _ = self.lstm(torch.flip(x, (1,)))
             return torch.flip(out, (1,))
@@ -117,10 +129,7 @@ class BiLSTM(nn.Module):
 
     def _last(self, x: torch.Tensor) -> torch.Tensor:
         """Position T-1 of the full output: the forward direction's last
-        step, and the backward direction's first step from the zero state,
-        which reads ``x[:, -1]`` alone. The backward cell keeps its
-        ``h0 @ W_hh`` term so ``weight_hh_l0_reverse`` gets the zero
-        gradient the full output gives it, not none."""
+        step, and the backward direction's first step from the zero state."""
         lstm = self.lstm
         h0 = x.new_zeros(1, x.shape[0], self.hidden)
         fwd = [lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0, lstm.bias_hh_l0]
@@ -129,9 +138,5 @@ class BiLSTM(nn.Module):
         # four tensors itself and warn on every call
         flat = torch.cat([p.reshape(-1) for p in fwd]).split([p.numel() for p in fwd])
         fwd = [v.view_as(p) for v, p in zip(flat, fwd)]
-        _, h_fwd, _ = _VF.lstm(x, (h0, h0), fwd, True, 1, 0.0, lstm.training, False, True)
-        h_bwd, _ = torch.lstm_cell(
-            x[:, -1], (h0[0], h0[0]), lstm.weight_ih_l0_reverse, lstm.weight_hh_l0_reverse,
-            lstm.bias_ih_l0_reverse, lstm.bias_hh_l0_reverse,
-        )
-        return torch.cat([h_fwd[0], h_bwd], dim=-1)
+        _, h_fwd, _ = _VF.lstm(x, (h0, h0), fwd, True, 1, 0.0, lstm.training, False, True)  # private API
+        return torch.cat([h_fwd[0], _first_backward_step(x, lstm, "_reverse")], dim=-1)

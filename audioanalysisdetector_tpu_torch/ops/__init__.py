@@ -6,42 +6,37 @@
 - ``ct_mel``       K3: mel power through a 64 x 32 Cooley-Tukey DFT of 2048
   (the parity mel step).
 
-Import from the kernel's own module (``ops.wave_mel``): it also holds the
-kernel's launch counter, which a re-export here would shadow.
-``launch_counts`` and ``reset_launch_counts`` read and zero every counter:
-each kernel's launches, and ``ct_mel.reflect``, K3's launches on a raw
-waveform (the center reflect pad folded into its frame addressing).
-``refuse_grad`` is the check each wrapper makes before a launch: no kernel
-has a backward.
+Each wrapper runs its plain version on a CPU tensor (``on_card`` is False)
+and hands a CUDA tensor's operands to ``launch``, the one launch path: it
+refuses an input that needs a backward, calls the C entry point that
+``_build.entry_point`` loaded on the current stream, and counts the launch
+in the ledger. ``launch_counts`` and ``reset_launch_counts`` read and zero
+it: each kernel's launches, and ``ct_mel.reflect``, K3's launches on a raw
+waveform (the center reflect pad folded into its frame addressing). A new
+kernel adds its name to ``LAUNCH_COUNTERS``.
 """
 
 from __future__ import annotations
 
-import importlib
+import threading
 
 import torch
 
-# counter name -> (module holding the kernel's wrapper, its counter)
-COUNTERS = {
-    "wave_mel": ("wave_mel", "launches"),
-    "fused_mel_from_frames": ("fused_logmel", "launches"),
-    "ct_mel": ("ct_mel", "launches"),
-    "ct_mel.reflect": ("ct_mel", "reflect_launches"),
-}
-
-
-def _module(name: str):
-    return importlib.import_module(f"{__name__}.{COUNTERS[name][0]}")
+LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect")
+_counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
+_counts_lock = threading.Lock()  # a serving thread may launch while another reads
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches made in this process, by counter name."""
-    return {name: getattr(_module(name), attr) for name, (_, attr) in COUNTERS.items()}
+    with _counts_lock:
+        return dict(_counts)
 
 
 def reset_launch_counts() -> None:
-    for name, (_, attr) in COUNTERS.items():
-        setattr(_module(name), attr, 0)
+    with _counts_lock:
+        for name in _counts:
+            _counts[name] = 0
 
 
 def refuse_grad(x: torch.Tensor, kernel: str) -> None:
@@ -55,3 +50,30 @@ def refuse_grad(x: torch.Tensor, kernel: str) -> None:
             "Pallas kernels have none, and this input requires grad; extract "
             "features under torch.no_grad()"
         )
+
+
+def on_card(x: torch.Tensor, kernel: str) -> bool:
+    """Whether ``kernel`` launches on ``x``: True on a CUDA tensor, False on
+    a CPU tensor (the plain version runs); no other device has a path."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise NotImplementedError(f"{kernel} has no path for {x.device}")
+    return False
+
+
+def launch(entry, x: torch.Tensor, kernel: str, *args, rows: int, counters: tuple[str, ...] = ()) -> None:
+    """Launch ``kernel`` on ``x``'s card: ``entry(*args, stream)`` on the
+    current stream, then one count on ``kernel``'s counter and on each of
+    ``counters``. ``rows``, the frame rows the kernel indexes with an int,
+    must stay below 2**31."""
+    refuse_grad(x, kernel)
+    if rows >= 2**31:
+        raise ValueError(f"{rows} frame rows overflow the kernel's int row index")
+    with torch.cuda.device(x.device):
+        rc = entry(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
+    with _counts_lock:
+        for name in (kernel, *counters):
+            _counts[name] += 1

@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C entry point, so it compiles in
 seconds without PyTorch's headers. ``load_library(name)`` compiles it at
 first use into ``build/torch_kernels/`` beside the package (a directory git
 ignores), named by the hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is reused. Each source has its own lock, so
+rebuilt and an unchanged one is reused. ``entry_point`` returns one of its C
+functions, typed and cached. Each source has its own lock, so
 threads that load different kernels run their ``nvcc`` builds in parallel.
 ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` (``/usr/local/cuda`` when unset) or the
 one on ``PATH``. There is no fallback: a missing compiler or a failed build
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+from collections.abc import Callable
+from functools import lru_cache
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -79,3 +82,14 @@ def load_library(name: str) -> ctypes.CDLL:
         build_log[name] = {"seconds": seconds, "output": output, "path": str(lib)}
         _loaded[name] = ctypes.CDLL(str(lib))
         return _loaded[name]
+
+
+@lru_cache(maxsize=None)
+def entry_point(name: str, symbol: str, argtypes: tuple) -> Callable[..., int]:
+    """``symbol`` of ``csrc/<name>.cu`` (built at first use) with its C
+    parameter types ``argtypes``, the CUDA stream last, returning its
+    ``cudaError_t`` as an int."""
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -42,20 +42,18 @@ import torch
 
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
-from audioanalysisdetector_tpu_torch.frontend.stft import _window_array, center_pad
-from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
+from audioanalysisdetector_tpu_torch.frontend.stft import _window_array, center_pad, n_frames_for
+from audioanalysisdetector_tpu_torch.ops import _build, launch, on_card
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 N1 = 64  # in-chunk offset / stage-C DFT length
 N2 = 32  # chunk index / stage-A DFT length
 N_FFT = N1 * N2
 LANES = 32  # the FFT kernel's warp: one frame row, 32 x 32 registers
-
-# Kernel launches made by ``ct_mel`` and ``ct_mel_unpadded`` in this
-# process, and those of them that read a raw waveform (the reflect pad
-# folded in). Only the wrappers' CUDA branches add to them, one per launch.
-launches = 0
-reflect_launches = 0
+# ct_mel_launch(wav, win, tw1, tw2, melw, spans, out, n_rows, n_frames, n_sig, left, hop, n_mels, stream)
+_ARGTYPES = (
+    (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+)
 
 
 def _refusal(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> Exception | None:
@@ -172,16 +170,6 @@ def _kernel_operands(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
-@lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load_library("ct_mel").ct_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [
-        ctypes.c_int
-    ] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _covering(wav_padded: torch.Tensor, cfg: MelConfig, n_frames: int) -> torch.Tensor:
     """Check the input and zero-extend it to the frames' reach where the TPU
     kernel would (it rounds the padded length up to a multiple of 64)."""
@@ -226,47 +214,26 @@ def ct_mel(
     otherwise); any batch size. On a CUDA tensor this launches the kernel
     on the current stream; on a CPU tensor it is ``ct_mel_reference``.
     """
-    global launches
     wav_padded = _covering(wav_padded, cfg, n_frames)
-    if not wav_padded.is_cuda:
-        if wav_padded.device.type != "cpu":
-            raise NotImplementedError(f"ct_mel has no path for {wav_padded.device}")
+    if not on_card(wav_padded, "ct_mel"):
         return ct_mel_reference(wav_padded, cfg, n_frames=n_frames)
-    refuse_grad(wav_padded, "ct_mel")
-    out = _launch(wav_padded, cfg, n_frames, left=0)
-    launches += 1
-    return out
+    return _launch(wav_padded, cfg, n_frames, left=0)
 
 
 def _launch(wav: torch.Tensor, cfg: MelConfig, n_frames: int, *, left: int) -> torch.Tensor:
     """The kernel on contiguous ``(B, n_sig)`` float32 rows whose frame f
     starts at sample ``f * hop - left`` (the kernel reflects what lies
-    outside a row) -> ``(B, n_frames, n_mels)``, on the current stream."""
+    outside a row) -> ``(B, n_frames, n_mels)``, on the current stream. A
+    launch on raw rows (``left`` > 0) also counts as ``ct_mel.reflect``."""
     B, n_sig = wav.shape
-    if B * n_frames >= 2**31:
-        raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
     win, tw1, tw2, melw, spans = _kernel_operands(cfg, wav.device)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav.device)
-    fn = _kernel()
-    with torch.cuda.device(wav.device):
-        rc = fn(
-            wav.data_ptr(),
-            win.data_ptr(),
-            tw1.data_ptr(),
-            tw2.data_ptr(),
-            melw.data_ptr(),
-            spans.data_ptr(),
-            out.data_ptr(),
-            B * n_frames,
-            n_frames,
-            n_sig,
-            left,
-            cfg.hop_length,
-            cfg.n_mels,
-            torch.cuda.current_stream(wav.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ct_mel kernel launch failed with CUDA error {rc}")
+    launch(
+        _build.entry_point("ct_mel", "ct_mel_launch", _ARGTYPES), wav, "ct_mel",
+        wav.data_ptr(), win.data_ptr(), tw1.data_ptr(), tw2.data_ptr(), melw.data_ptr(), spans.data_ptr(),
+        out.data_ptr(), B * n_frames, n_frames, n_sig, left, cfg.hop_length, cfg.n_mels,
+        rows=B * n_frames, counters=("ct_mel.reflect",) if left else (),
+    )
     return out
 
 
@@ -278,9 +245,8 @@ def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     reflects the edge frames' samples itself: bitwise ``ct_mel`` of the
     padded rows, without the padded copy. Otherwise ``center_pad`` (under
     the ``mel.pad`` span) and ``ct_mel``."""
-    global launches, reflect_launches
     lead, n = y.shape[:-1], y.shape[-1]
-    n_frames = 1 + n // cfg.hop_length
+    n_frames = n_frames_for(n, cfg.hop_length, cfg.n_fft, center=True)
     flat = y.reshape(-1, n)
     if not flat.is_cuda or cfg.pad_mode != "reflect":
         with span("mel.pad"):
@@ -293,11 +259,7 @@ def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
             f"Padding size should be less than the corresponding input dimension, but got: "
             f"padding ({pad}, {pad}) of an input of {n} samples"
         )
-    refuse_grad(flat, "ct_mel")
-    mel = _launch(flat.contiguous(), cfg, n_frames, left=pad)
-    launches += 1
-    reflect_launches += 1
-    return mel.reshape(*lead, n_frames, cfg.n_mels)
+    return _launch(flat.contiguous(), cfg, n_frames, left=pad).reshape(*lead, n_frames, cfg.n_mels)
 
 
 def ct_log_mel(

@@ -27,14 +27,12 @@ import torch
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import frame_signal
-from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
+from audioanalysisdetector_tpu_torch.ops import _build, launch, on_card
 from audioanalysisdetector_tpu_torch.ops.wave_mel import MAX_MELS, _kernel_operands, _operands_on
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# Kernel launches made by ``fused_mel_from_frames`` in this process. Only the
-# wrapper's CUDA branch adds to it, one per launch.
-launches = 0
+# frames_mel_launch(frames, bases, mel, out, n_rows, row_stride, n_fft, n_tiles, n_mels, bf16, stream)
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 @lru_cache(maxsize=None)
@@ -42,14 +40,6 @@ def _bases_on(cfg: MelConfig, device: torch.device, dtype: torch.dtype) -> tuple
     """K1's padded cos/sin bases in ``dtype`` and its f32 mel matrix."""
     cos_p, sin_p, mel_p = _operands_on(cfg, device)
     return cos_p.to(dtype), sin_p.to(dtype), mel_p
-
-
-@lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load_library("wave_mel").frames_mel_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(frames: torch.Tensor, cfg: MelConfig, compute_dtype: str) -> torch.dtype:
@@ -88,16 +78,10 @@ def fused_mel_from_frames(
     frames are cast to ``compute_dtype`` first); on a CPU tensor it is
     ``fused_mel_from_frames_reference``. Any N is taken.
     """
-    global launches
     dtype = _check(frames, cfg, compute_dtype)
-    if not frames.is_cuda:
-        if frames.device.type != "cpu":
-            raise NotImplementedError(f"fused_mel_from_frames has no path for {frames.device}")
+    if not on_card(frames, "fused_mel_from_frames"):
         return fused_mel_from_frames_reference(frames, cfg, compute_dtype=compute_dtype)
-    refuse_grad(frames, "fused_mel_from_frames")
     n = frames.shape[0]
-    if n >= 2**31:
-        raise ValueError(f"{n} frame rows overflow the kernel's int row index")
     x = frames.to(dtype).contiguous()
     if dtype == torch.bfloat16 and (x.data_ptr() % 16 or cfg.n_fft % 8):
         # bf16 rows are staged in 16-byte copies: a fresh (aligned) copy,
@@ -107,24 +91,12 @@ def fused_mel_from_frames(
         x = aligned
     bases, mel, n_tiles = _kernel_operands(cfg, frames.device, dtype == torch.float32)
     out = torch.empty((n, cfg.n_mels), dtype=torch.float32, device=frames.device)
-    fn = _kernel()
-    with torch.cuda.device(frames.device):
-        rc = fn(
-            x.data_ptr(),
-            bases.data_ptr(),
-            mel.data_ptr(),
-            out.data_ptr(),
-            n,
-            x.shape[1],
-            cfg.n_fft,
-            n_tiles,
-            cfg.n_mels,
-            int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(frames.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_mel_from_frames kernel launch failed with CUDA error {rc}")
-    launches += 1
+    launch(
+        _build.entry_point("wave_mel", "frames_mel_launch", _ARGTYPES), frames, "fused_mel_from_frames",
+        x.data_ptr(), bases.data_ptr(), mel.data_ptr(), out.data_ptr(), n, x.shape[1], cfg.n_fft, n_tiles,
+        cfg.n_mels, int(dtype == torch.bfloat16),
+        rows=n,
+    )
     return out
 
 

@@ -40,7 +40,7 @@ from audioanalysisdetector_tpu_torch.frontend.stft import (
     magnitude_power,
     n_frames_for,
 )
-from audioanalysisdetector_tpu_torch.ops import _build, refuse_grad
+from audioanalysisdetector_tpu_torch.ops import _build, launch, on_card
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 K_TILE = 64  # bin padding of the plain version's bases (the JAX kernel's K_TILE)
@@ -48,11 +48,11 @@ MAX_MELS = 128  # mel accumulators per row and group (K2 takes one group)
 DTYPES = (torch.float32, torch.bfloat16)  # waveform types the kernel takes
 N_TILE = 64  # live bins per kernel tile; must equal NB in csrc/wave_mel.cu
 K_CHUNK = 32  # samples per kernel stage; must equal KC in csrc/wave_mel.cu
-
-# Kernel launches made by ``wave_mel`` in this process. Only the wrapper's
-# CUDA branch adds to it, one per launch, so a run can show that its main
-# path went through the kernel (reset it to 0 before the run, read after).
-launches = 0
+# wave_mel_launch(wav, bases, mel, out, n_rows, n_frames, n_pad, hop, n_fft, n_tiles, n_mels, power, bf16, stream)
+_ARGTYPES = (
+    (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4
+    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -172,17 +172,6 @@ def _kernel_operands(
     return _bf16_parts(b, 3 if split else 1).to(device), torch.from_numpy(mel).to(device), n_tiles
 
 
-@lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load_library("wave_mel").wave_mel_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(wav_padded: torch.Tensor, cfg: MelConfig, n_frames: int) -> None:
     if wav_padded.dim() != 2:
         raise ValueError(f"expected (B, n_padded) waveforms, got {tuple(wav_padded.shape)}")
@@ -222,40 +211,19 @@ def wave_mel(
     side, reflect). On a CUDA tensor this launches the kernel on the current
     stream; on a CPU tensor it is ``wave_mel_reference``.
     """
-    global launches
     _check(wav_padded, cfg, n_frames)
-    if not wav_padded.is_cuda:
-        if wav_padded.device.type != "cpu":
-            raise NotImplementedError(f"wave_mel has no path for {wav_padded.device}")
+    if not on_card(wav_padded, "wave_mel"):
         return wave_mel_reference(wav_padded, cfg, n_frames=n_frames)
-    refuse_grad(wav_padded, "wave_mel")
     B, n_pad = wav_padded.shape
-    if B * n_frames >= 2**31:
-        raise ValueError(f"{B * n_frames} frame rows overflow the kernel's int row index")
     bf16 = wav_padded.dtype == torch.bfloat16
     bases, mel, n_tiles = _kernel_operands(cfg, wav_padded.device, split=not bf16)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav_padded.device)
-    fn = _kernel()
-    with torch.cuda.device(wav_padded.device):
-        rc = fn(
-            wav_padded.data_ptr(),
-            bases.data_ptr(),
-            mel.data_ptr(),
-            out.data_ptr(),
-            B * n_frames,
-            n_frames,
-            n_pad,
-            cfg.hop_length,
-            cfg.n_fft,
-            n_tiles,
-            cfg.n_mels,
-            float(cfg.power),
-            int(bf16),
-            torch.cuda.current_stream(wav_padded.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"wave_mel kernel launch failed with CUDA error {rc}")
-    launches += 1
+    launch(
+        _build.entry_point("wave_mel", "wave_mel_launch", _ARGTYPES), wav_padded, "wave_mel",
+        wav_padded.data_ptr(), bases.data_ptr(), mel.data_ptr(), out.data_ptr(), B * n_frames, n_frames, n_pad,
+        cfg.hop_length, cfg.n_fft, n_tiles, cfg.n_mels, float(cfg.power), int(bf16),
+        rows=B * n_frames,
+    )
     return out
 
 

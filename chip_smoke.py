@@ -231,7 +231,7 @@ from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, Mo
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
-from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm  # the modules: counters
+from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
@@ -258,6 +258,8 @@ from audioanalysisdetector_tpu_torch.serve.server import (
     build_mel_scorer,
     default_bucket_ladder,
 )
+from portbench.yardstick.counts import bilstm_classifier_ops, cqcc_ops, gmm_pair_ops
+from portbench.yardstick.peaks import FP32_FLOP_PER_S, HBM_BYTES_PER_S
 
 ROOT = Path(__file__).resolve().parent
 SR, N_SAMPLES, BATCH = 16000, 32000, 8192
@@ -279,10 +281,6 @@ DB_TOL = 1e-3
 # emulation of the kernel reads 9.2e-4 dB at -70.6 dB on 16 rows; an H100
 # 7.7e-3 dB on 8192 rows, at 2.9e-6 of the max power)
 DB_TOL_MANY_MELS = 3e-2
-# The published peaks of one H100 SXM at 700 W (NVIDIA's data sheet) that
-# ``mel_bound`` divides by: fp32 outside the tensor cores, and HBM3.
-FP32_FLOP_PER_S = 67e12
-HBM_BYTES_PER_S = 3.35e12
 # K2 in bf16 against its f32 result: the median relative error of the mel
 # power (the bound of the JAX package's tests/test_ops_pallas.py:54)
 BF16_MEDIAN_TOL = 0.02
@@ -399,7 +397,10 @@ def mel_bound(cfg: MelConfig, rows: int, in_bytes: int) -> dict:
     frames: the larger of the operations of a real FFT, window, |X|^2 and
     the mel weights, 2.5 N log2 N + N + 3 (N/2 + 1) + 2 nnz(mel) per frame
     at FP32_FLOP_PER_S, and the bytes, ``in_bytes`` read once and the f32
-    output written once, at HBM_BYTES_PER_S."""
+    output written once, at HBM_BYTES_PER_S. Kept beside
+    ``portbench/yardstick/counts.py::mel_bound``, which takes the raw f32
+    waveform as the bytes read: the kernels here read padded rows, bf16
+    rows or K2's frame matrix."""
     n = cfg.n_fft
     nnz = int(np.count_nonzero(cfg.filterbank()))
     ops = rows * (2.5 * n * np.log2(n) + n + 3 * (n // 2 + 1) + 2 * nnz)
@@ -441,7 +442,10 @@ def device_breakdown(fn, iters: int = 5, top: int = 8) -> tuple[float, float, li
     kernel ms, the ``top`` kernels as (ms, launches, name)), per call. The
     kernels come from ``torch.profiler`` over ``iters`` calls; the wall from
     a separate synchronised loop, so the profiler's own cost stays out of it.
-    Their ratio is the card's busy share."""
+    Their ratio is the card's busy share. Kept beside
+    ``portbench/harness/trace.py::Window``: that clips device time to its
+    host range, which over 5 calls on an H100 left out one of five K3
+    launches; this counts every one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1039,35 +1043,6 @@ def fused_models(device: str, dim: int = 19):
     return model.to(device).eval(), g, s
 
 
-def fused_flop(cfg: CQCCConfig, batch: int, n: int, hidden: int = 128, k: int = 128) -> dict:
-    """Floating-point operations of one fused batch by stage, from the
-    shapes the port multiplies (the banded operators' zeros included: they
-    are what cuBLAS computes): the CQT's framing GEMMs and dense
-    operators, its decimation GEMMs, CQCC's regrid and DCT, the two BiLSTM
-    layers (both directions over all T steps), the two GMMs' two GEMMs."""
-    from audioanalysisdetector_tpu_torch.frontend.cqt import _decim_block_for, _octave_kernel_bank
-
-    c = cfg.cqt
-    T = 1 + n // c.hop_length
-    cqt_ops = decim = 0.0
-    n_cur = n + (-n) % 2 ** (c.n_octaves - 1)
-    for octave in range(c.n_octaves):
-        kernels, K = _octave_kernel_bank(c, octave)
-        hop = c.hop_length >> octave
-        if -(-K // hop) <= 2:
-            cqt_ops += 2.0 * batch * T * K * kernels.shape[0]
-        else:
-            cqt_ops += 2.0 * batch * n_cur * T * kernels.shape[0]
-        if octave + 1 < c.n_octaves:
-            block = _decim_block_for(n_cur) or 256
-            decim += 2.0 * batch * -(-n_cur // block) * (block + 62) * (block // 2)
-            n_cur //= 2
-    cqcc_ops = 2.0 * batch * T * c.n_bins * (c.n_bins + cfg.n_ceps)
-    lstm = sum(2 * 2.0 * batch * T * 4 * hidden * (i + hidden) for i in (cfg.n_ceps, 2 * hidden))
-    gmm = 2 * 2 * 2.0 * batch * T * cfg.n_ceps * k
-    return {"cqt": cqt_ops, "decimation": decim, "cqcc": cqcc_ops, "lstm": lstm, "gmm": gmm}
-
-
 def phase_fused() -> dict:
     """The flagship wav -> CQCC -> GMM ⊕ BiLSTM scorer at B=8192; returns
     its numbers."""
@@ -1090,7 +1065,10 @@ def phase_fused() -> dict:
     if diff > FUSED_TOL:
         raise AssertionError(f"fused: card scores differ from the CPU's by {diff:.3e} > {FUSED_TOL}")
     ms = cuda_ms(lambda: score(wav), 3)
-    flop = fused_flop(cfg, BATCH, N_SAMPLES)
+    # the benchmark's yardstick (mfu.score's): what the mathematics needs, by stage
+    bench_cfg = json.loads((ROOT / "portbench" / "configs" / "cqcc-fused.json").read_text())
+    flop = {k: BATCH * f(bench_cfg) for k, f in (("cqcc", cqcc_ops), ("bilstm", bilstm_classifier_ops),
+                                                  ("gmm", gmm_pair_ops))}
     log("fused", batch=BATCH, **{f"gflop_{k}": f"{v / 1e9:.1f}" for k, v in flop.items()},
         tflops=f"{sum(flop.values()) / ms / 1e9:.2f}")
     log("fused", batch=BATCH, cqcc=f"{cfg.cqt.n_bins}bins/hop{cfg.cqt.hop_length}/{cfg.n_ceps}ceps",
@@ -1881,7 +1859,9 @@ def multi_traffic(base: str, direct, seed: int) -> dict:
     to ``direct``: utt/s, latency percentiles, the stats' delta, and K3's
     launches under the traffic: this process's (every counter set to 0
     just before it and read just after it, before the check's own calls)
-    and the owner's, where the service reports them."""
+    and the owner's, where the service reports them. Kept beside
+    ``portbench/harness/openloop.py``, which paces seeded Poisson arrivals
+    for a latency tail: these clients send back to back, for the rate."""
     rng = np.random.default_rng(seed)
     requests = []  # per client: (rows, body, headers, path)
     for _ in range(MULTI_CLIENTS):

@@ -12,6 +12,7 @@ the gradient flows as through the JAX chain.
 import inspect
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from audioanalysisdetector_tpu_torch.cli.main import main as cli_main
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, melspectrogram
 from audioanalysisdetector_tpu_torch.frontend.stft import center_pad
 from audioanalysisdetector_tpu_torch.io.audio import load_audio, write_wav
-from audioanalysisdetector_tpu_torch.ops import ct_mel, fused_logmel, refuse_grad, wave_mel
+from audioanalysisdetector_tpu_torch.ops import ct_mel, fused_logmel, launch_counts, refuse_grad, wave_mel
 
 torch.set_num_threads(2)
 
@@ -77,9 +78,8 @@ def test_train_cli_writes_the_run_dir(trained, capsys):
     d, seed = trained
     run, metrics, launches = _run_train(d, seed, capsys)
     assert set(metrics) == {"accuracy", "f1", "eer", "loss"} and np.isfinite(list(metrics.values())).all()
-    assert launches == {
-        "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
-    }  # the CPU: plain versions
+    # every counter of the ledger, in its order, at 0: the CPU runs the plain versions
+    assert list(launches.items()) == [(name, 0) for name in launch_counts()]
     assert {"best_model.msgpack", "best_model.msgpack.json", "worst_model.msgpack", "final_model.msgpack",
             "training_log.csv", "training_log.txt", "logs.json", "loss_curve.png",
             "accuracy_curve.png"} <= set(os.listdir(run))
@@ -126,11 +126,15 @@ def test_refuse_grad_raises_for_an_input_that_requires_grad():
     "wrapper", [wave_mel.wave_mel, ct_mel.ct_mel, fused_logmel.fused_mel_from_frames, ct_mel.ct_mel_unpadded]
 )
 def test_each_wrapper_refuses_grad_before_its_launch(wrapper):
-    """The check sits in the CUDA branch, before the launch (the card's
-    ``chip_smoke.py`` train phase makes it raise there)."""
+    """The CUDA branch hands the input to ``ops.launch``, which refuses grad
+    before it calls the kernel (``tests/test_torch_ops_launch.py``; the
+    card's ``chip_smoke.py`` train phase makes it raise there). ``ct_mel``
+    and ``ct_mel_unpadded`` reach it through ``ct_mel._launch``."""
     src = inspect.getsource(wrapper)
-    assert src.index("refuse_grad(") < src.index("launches += 1")
-    assert src.index("if not") < src.index("refuse_grad(")  # after the CPU branch returns
+    call = re.search(r"(?<![\w.])_?launch\(", src)
+    assert call is not None and src.index("if not") < call.start()  # after the CPU branch returns
+    if call.group().startswith("_"):
+        assert re.search(r"(?<![\w.])launch\(", inspect.getsource(ct_mel._launch))
 
 
 @pytest.mark.parametrize("profile", ["parity", "speech"])

@@ -49,6 +49,7 @@ from audioanalysisdetector_tpu_torch.io.native_loader import load_chunk_batch_na
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
 from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
+from audioanalysisdetector_tpu_torch.ops import launch_counts
 from audioanalysisdetector_tpu_torch.train import checkpoint
 from audioanalysisdetector_tpu_torch.train.state import TrainState
 from audioanalysisdetector_tpu_torch.train.sweep import _sweep_optimizer
@@ -109,9 +110,8 @@ def test_xai_cli_maps_are_the_jax_attributions(corpus, tmp_path, monkeypatch, ca
         [f"u0_{k}.png" for k in ("saliency", "grad_cam", "integrated_gradients", "occlusion")]
         + ["gradcam_overlay.png", "explanation.html"])
     assert all(os.path.exists(p) for p in lines[1:])
-    assert _launches(err) == {
-        "wave_mel": 0, "fused_mel_from_frames": 0, "ct_mel": 0, "ct_mel.reflect": 0,
-    }  # the CPU: plain versions
+    # every counter of the ledger, in its order, at 0: the CPU runs the plain versions
+    assert list(_launches(err).items()) == [(name, 0) for name in launch_counts()]
 
     # the JAX attributions of the CLI's model (flax_init_ from seed 0) on the
     # JAX log-mel of the first file (bonafide/u0.wav)

@@ -19,7 +19,7 @@ import torch
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import center_pad
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
-from audioanalysisdetector_tpu_torch.ops import launch_counts, reset_launch_counts
+from audioanalysisdetector_tpu_torch.ops import LAUNCH_COUNTERS, launch_counts, reset_launch_counts
 
 
 @pytest.fixture
@@ -33,6 +33,11 @@ def card() -> torch.device:
 def _wave(shape: tuple[int, ...], seed: int, device: torch.device) -> torch.Tensor:
     g = torch.Generator(device=device).manual_seed(seed)
     return 0.1 * torch.randn(shape, generator=g, device=device)
+
+
+def _k3_launches(padded: int, raw: int) -> dict[str, int]:
+    """The whole ledger after ``padded`` + ``raw`` K3 launches and no other."""
+    return {**dict.fromkeys(LAUNCH_COUNTERS, 0), "ct_mel": padded + raw, "ct_mel.reflect": raw}
 
 
 def _padded_route(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
@@ -69,7 +74,7 @@ def test_raw_route_is_bitwise_the_padded_route(card, batch, n, n_mels, layout):
     assert raw.shape == (batch, 1 + n // cfg.hop_length, n_mels)
     assert torch.isfinite(raw).all()
     assert torch.equal(raw, padded)
-    assert launch_counts()["ct_mel"] == 2 and launch_counts()["ct_mel.reflect"] == 1
+    assert launch_counts() == _k3_launches(padded=1, raw=1)
 
 
 @pytest.mark.cuda
@@ -87,9 +92,9 @@ def test_reflect_counter_counts_raw_launches_only(card):
     y = _wave((2, 32000), 3, card)
     reset_launch_counts()
     _padded_route(y, cfg)
-    assert launch_counts()["ct_mel"] == 1 and launch_counts()["ct_mel.reflect"] == 0
+    assert launch_counts() == _k3_launches(padded=1, raw=0)
     ctm.ct_mel_unpadded(y, cfg)
-    assert launch_counts()["ct_mel"] == 2 and launch_counts()["ct_mel.reflect"] == 1
+    assert launch_counts() == _k3_launches(padded=1, raw=1)
 
 
 @pytest.mark.cuda
@@ -101,7 +106,7 @@ def test_too_short_raises_what_center_pad_raises(card, n):
     reset_launch_counts()
     with pytest.raises(type(padded.value), match="Padding size should be less"):
         ctm.ct_mel_unpadded(y, MelConfig())
-    assert launch_counts()["ct_mel"] == 0 and launch_counts()["ct_mel.reflect"] == 0
+    assert set(launch_counts().values()) == {0}
 
 
 @pytest.mark.cuda
@@ -110,4 +115,4 @@ def test_raw_route_refuses_grad(card):
     reset_launch_counts()
     with pytest.raises(RuntimeError, match="no backward"):
         ctm.ct_mel_unpadded(y, MelConfig())
-    assert launch_counts()["ct_mel"] == 0
+    assert set(launch_counts().values()) == {0}
