@@ -17,6 +17,15 @@ evaluation, ``_first_backward_step``). Both read the module's parameters
 at each call; the state-dict keys are ``torch.nn.LSTM``'s. The forward
 scan calls ``torch._VF.lstm``, a private API (it passed on torch 2.13 on
 the CPU and 2.11 on the card).
+
+``BiLSTM``'s scans go to the hand-written recurrence K4
+(``ops/lstm_scan.py``) in place of cuDNN where ``lstm_scan.takes`` holds of
+its input: a fixed-length float32 batch on the card, hidden 128, and no
+backward to come (inference: the fused scorer's classifier). The full
+output is then one K4 launch for both directions, ``last_only``'s forward
+scan one launch for the forward direction alone. Every other input
+(training, XAI's gradients, ragged rows, the mel model's hidden 32, other
+dtypes, the CPU) keeps the paths above.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from torch import _VF, nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 _LAST_ONLY_RAGGED = (
@@ -113,6 +123,8 @@ class BiLSTM(nn.Module):
         if last_only:
             with span("lstm.last_only"):
                 return self._last(x)
+        if k4.takes(x, self.lstm, lengths):
+            return self._scan(x)
         out, _ = self.lstm(x)
         if lengths is None:
             return out
@@ -127,10 +139,22 @@ class BiLSTM(nn.Module):
         H = self.hidden
         return torch.cat([out[..., :H], ragged[..., H:]], dim=-1)
 
+    def _scan(self, x: torch.Tensor, *, last_only: bool = False) -> torch.Tensor:
+        """K4's route: both directions' full output ``(B, T, 2H)`` in one
+        launch, or with ``last_only`` the forward direction's last h ``(B,
+        H)`` (on a CPU tensor, K4's plain version)."""
+        lstm = self.lstm
+        if last_only:
+            return k4.lstm_scan(k4.input_gates(x, lstm, ("",)), (lstm.weight_hh_l0,), last_only=True)
+        xg = k4.input_gates(x, lstm, ("", "_reverse"))
+        return k4.lstm_scan(xg, (lstm.weight_hh_l0, lstm.weight_hh_l0_reverse))
+
     def _last(self, x: torch.Tensor) -> torch.Tensor:
         """Position T-1 of the full output: the forward direction's last
         step, and the backward direction's first step from the zero state."""
         lstm = self.lstm
+        if k4.takes(x, lstm):
+            return torch.cat([self._scan(x, last_only=True), _first_backward_step(x, lstm, "_reverse")], dim=-1)
         h0 = x.new_zeros(1, x.shape[0], self.hidden)
         fwd = [lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0, lstm.bias_hh_l0]
         # one chunk in cuDNN's order for one direction: the module's flat

@@ -5,6 +5,8 @@
   bf16 operands (the K1 CUDA core, templated on the element type).
 - ``ct_mel``       K3: mel power through a 64 x 32 Cooley-Tukey DFT of 2048
   (the parity mel step).
+- ``lstm_scan``    K4: the inference LSTM recurrence (hidden 128, fp32) of
+  ``models/lstm.py::BiLSTM``, a layer's directions in one launch.
 
 Each wrapper runs its plain version on a CPU tensor (``on_card`` is False)
 and hands a CUDA tensor's operands to ``launch``, the one launch path: it
@@ -22,7 +24,7 @@ import threading
 
 import torch
 
-LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect")
+LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan")
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads
 
@@ -41,14 +43,14 @@ def reset_launch_counts() -> None:
 
 def refuse_grad(x: torch.Tensor, kernel: str) -> None:
     """Raise when autograd would need ``kernel``'s backward: grad mode is on
-    and ``x`` requires grad. The kernels, like the JAX package's Pallas
-    kernels, have none, and a launch through ctypes would cut the gradient
-    silently (the plain versions on the CPU keep it)."""
+    and ``x`` requires grad. The hand-written kernels, like the JAX
+    package's Pallas kernels, have none, and a launch through ctypes would
+    cut the gradient silently (the plain versions on the CPU keep it)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(
-            f"{kernel}: the mel kernels have no backward, as the JAX package's "
-            "Pallas kernels have none, and this input requires grad; extract "
-            "features under torch.no_grad()"
+            f"{kernel}: the kernel has no backward, as the JAX package's "
+            "Pallas kernels have none, and this input requires grad; run it "
+            "under torch.no_grad()"
         )
 
 

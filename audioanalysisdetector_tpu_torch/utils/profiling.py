@@ -42,6 +42,11 @@ and names the card's idle gaps by span path;
   alone (the forward scan and one backward cell step): the second BiLSTM of
   ``BiLSTMClassifier``, one a fused scorer call inside ``score.model``, none
   in the mel scorer: that layer's device ms a call.
+- ``lstm.scan``: one launch of K4, the inference LSTM recurrence
+  (``ops/lstm_scan.py``): two a fused scorer call inside ``score.model``
+  (the first BiLSTM's two directions; the second's forward scan, inside
+  ``lstm.last_only``), none in the mel scorer (hidden 32 keeps cuDNN) and
+  none where a backward is asked: the recurrence's device ms a call.
 - ``serve.collect``: ``BatchingScorer`` gathering one dispatch after its
   first slice arrived, on the batcher's thread: the host gaps of a
   serving trace.

@@ -12,9 +12,9 @@ CNN-BiLSTM -> score) at the flagship model's full width, in phases that
 each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2) and
-   ``ops/csrc/ct_mel.cu`` (K3) with nvcc, one process each, in parallel,
-   and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
+   ``ops/csrc/ct_mel.cu`` (K3) and ``ops/csrc/lstm_scan.cu`` (K4) with nvcc,
+   one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
    (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
@@ -39,6 +39,12 @@ each print their lines:
    128 mels and at n_fft 100 off alignment, bf16 against f32, the times
    beside the bound and the library chain; then the drop-in
    ``fused_log_mel_spectrogram`` path in both dtypes, counting its launches;
+5b. K4: ``lstm_scan`` at the fused scorer's shapes (B=8192, T=63): layer
+   1's two directions in one launch (19 inputs, full output) and layer 2's
+   forward scan (256 inputs, last step only), against its plain version
+   and ``nn.LSTM`` (cuDNN, a yardstick only), one launch each; the kernel,
+   plain and cuDNN times in turns beside the bound and the input
+   projection's time; a ``BiLSTM`` call with grad enabled keeps cuDNN;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -51,12 +57,13 @@ each print their lines:
 9. fused: the flagship wav -> CQCC -> GMM ⊕ BiLSTM scorer
    (``make_cqcc_fused_scorer``) at full width (BiLSTM hidden 128, two
    128-component GMMs, 84-bin CQT, 19 CQCCs) on B=8192 two-second
-   utterances: ms per batch, utt/s and a ``torch.profiler`` breakdown, 256
-   rows against the port on the CPU; the same features through
+   utterances: ms per batch, utt/s, K4's launches a call (2: its BiLSTMs'
+   recurrences) and a ``torch.profiler`` breakdown, 256 rows against the
+   port on the CPU; the same features through
    ``make_fused_scorer`` with the deltas + CMVN frame transform (D = 57
    GMMs); ``eval_model`` over a model dir written with ``to_numpy``, on the
    card and on the CPU. The path reaches no TPU kernel (XLA computed it in
-   the JAX package), so it runs plain PyTorch: cuBLAS, cuDNN;
+   the JAX package): cuBLAS, and K4 for the recurrences;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -211,6 +218,7 @@ from audioanalysisdetector_tpu_torch.io.native_loader import (
 )
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
+from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM
 from audioanalysisdetector_tpu_torch.entry import dryrun_multichip
 from audioanalysisdetector_tpu_torch.models.gmm import (
     DiagGMM,
@@ -233,6 +241,7 @@ from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
+from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
     init_mel_cnn_bilstm,
@@ -358,7 +367,14 @@ KERNEL_SOURCES = {
     "wave_mel": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/wave_mel.py:63"),
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
     "ct_mel": ("ops/csrc/ct_mel.cu", "audioanalysisdetector_tpu/ops/ct_mel.py:154"),
+    "lstm_scan": ("ops/csrc/lstm_scan.cu", "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under nn.LSTM"),
 }
+# K4 against its plain version, both fp32 on the card: the same steps, the
+# h W_hh^T sums taken in other orders over 63 steps (an H100 read 1.8e-7)
+LSTM_PLAIN_TOL = 2e-6
+# K4 against cuDNN's LSTM, which rounds its input product and its gates
+# otherwise (the plain version and K4 alike read up to 8.1e-6 from it)
+LSTM_CUDNN_TOL = 5e-5
 
 
 def log(phase: str, **kv) -> None:
@@ -566,7 +582,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel")
+    libs = ("wave_mel", "ct_mel", "lstm_scan")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -823,6 +839,71 @@ def phase_k2() -> dict:
     return results
 
 
+def lstm_bound(batch: int, steps: int, n_dirs: int, last_only: bool) -> dict:
+    """The least time the card could take for ``n_dirs`` LSTM scans of
+    hidden 128 (``ops/csrc/lstm_scan.cu``'s bound): the larger of the
+    ``h W_hh^T`` operations, 2 B T 512 128 a direction, at FP32_FLOP_PER_S,
+    and the bytes, the input gates (B T 512 a direction) and W_hh read once
+    and the output written once, at HBM_BYTES_PER_S. The input projection
+    is a separate product, outside the bound."""
+    gates, hidden = 4 * k4.HIDDEN, k4.HIDDEN
+    ops = 2 * batch * steps * gates * hidden * n_dirs
+    bytes_ = 4 * n_dirs * (batch * steps * gates + gates * hidden + batch * (1 if last_only else steps) * hidden)
+    ops_ms, bytes_ms = ops / FP32_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def phase_k4() -> dict:
+    """K4 vs its plain version and cuDNN at the fused scorer's two layers;
+    returns layer 1's numbers (the launch of both directions)."""
+    steps = 63
+    out = {}
+    for layer, inputs, last_only in (("layer1", 19, False), ("layer2", 256, True)):
+        torch.manual_seed(21)
+        lstm = torch.nn.LSTM(inputs, k4.HIDDEN, batch_first=True, bidirectional=not last_only).to(DEVICE)
+        x = torch.randn(BATCH, steps, inputs, device=DEVICE)
+        sfx = ("",) if last_only else ("", "_reverse")
+        ws = tuple(getattr(lstm, f"weight_hh_l0{s}") for s in sfx)
+        with torch.inference_mode():
+            xg = k4.input_gates(x, lstm, sfx)
+            kern = lambda: k4.lstm_scan(xg, ws, last_only=last_only)  # noqa: E731
+            plain = lambda: k4.lstm_scan_reference(xg, ws, last_only=last_only)  # noqa: E731
+            got, counts = run_counted(kern)
+            ref = plain()
+            lib = lstm(x)[0]
+            lib = lib[:, -1] if last_only else lib
+            err_plain = float((got - ref).abs().max())
+            err_lib = float((got - lib).abs().max())
+            plain_lib = float((ref - lib).abs().max())
+            del got, ref, lib
+            t = in_turns(kern, plain, lambda: lstm(x))
+            proj_ms = cuda_ms(lambda: k4.input_gates(x, lstm, sfx), 5)
+        bound = lstm_bound(BATCH, steps, len(ws), last_only)
+        flop = 2 * BATCH * steps * 4 * k4.HIDDEN * k4.HIDDEN * len(ws)
+        log("k4", layer=layer, batch=BATCH, steps=steps, inputs=inputs, directions=len(ws), last_only=last_only,
+            launches=counts["lstm_scan"], err_vs_plain=f"{err_plain:.3e}", err_vs_cudnn=f"{err_lib:.3e}",
+            plain_vs_cudnn=f"{plain_lib:.3e}", kernel_ms=f"{t['ms']:.3f}", plain_ms=f"{t['plain_ms']:.3f}",
+            kernel_runs="%.3f,%.3f" % t["runs"], plain_runs="%.3f,%.3f" % t["plain_runs"],
+            kernel_tflops=f"{flop / t['ms'] / 1e9:.2f}", projection_ms=f"{proj_ms:.3f}",
+            **bound_fields(t, bound))
+        if counts["lstm_scan"] != 1 or err_plain > LSTM_PLAIN_TOL or err_lib > LSTM_CUDNN_TOL:
+            raise AssertionError(f"K4 {layer}: {counts}, {err_plain:.3e} from plain (> {LSTM_PLAIN_TOL}?), "
+                                 f"{err_lib:.3e} from cuDNN (> {LSTM_CUDNN_TOL}?)")
+        out[layer] = {**t, **bound, "max_abs_err": err_plain}
+        del lstm, x, xg
+        free()
+    # grad mode: the parameters require grad, so BiLSTM keeps cuDNN and its gradients
+    bi = BiLSTM(19, k4.HIDDEN).to(DEVICE)
+    x = torch.randn(64, steps, 19, device=DEVICE, requires_grad=True)
+    _, counts = run_counted(lambda: bi(x).sum().backward())
+    if counts["lstm_scan"] or x.grad is None or bi.lstm.weight_hh_l0.grad is None:
+        raise AssertionError(f"K4 launched under grad mode or the gradients are gone ({counts})")
+    log("k4", grad_mode_launches=counts["lstm_scan"], grads_kept=True)
+    return {**out["layer1"], "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "layer2_ms": out["layer2"]["ms"]}
+
+
 def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     """Independent float64 mel power: numpy rfft of reflect-padded frames."""
     pad = cfg.n_fft // 2
@@ -1059,6 +1140,8 @@ def phase_fused() -> dict:
     scores, counts = run_counted(lambda: score(wav))
     if scores.shape != (BATCH,) or not bool(((scores > 0) & (scores < 1)).all()):
         raise AssertionError("fused: scores not finite in (0, 1)")
+    if counts["lstm_scan"] != 2:  # layer 1's two directions in one launch, layer 2's forward scan
+        raise AssertionError(f"fused: {counts['lstm_scan']} K4 launches a call, not 2")
     model_c, g_c, s_c = fused_models("cpu")
     cpu = make_cqcc_fused_scorer(model_c, g_c, s_c, cfg, scaler_mean=scaler.mean, scaler_std=scaler.std)
     diff = float((scores[:256].cpu() - cpu(wav[:256].cpu())).abs().max())
@@ -1072,7 +1155,8 @@ def phase_fused() -> dict:
     log("fused", batch=BATCH, **{f"gflop_{k}": f"{v / 1e9:.1f}" for k, v in flop.items()},
         tflops=f"{sum(flop.values()) / ms / 1e9:.2f}")
     log("fused", batch=BATCH, cqcc=f"{cfg.cqt.n_bins}bins/hop{cfg.cqt.hop_length}/{cfg.n_ceps}ceps",
-        gmm_components=g.n_components, bilstm_hidden=128, kernel_launches=json.dumps(counts, separators=(",", ":")),
+        gmm_components=g.n_components, bilstm_hidden=128, lstm_scan_launches_per_call=counts["lstm_scan"],
+        kernel_launches=json.dumps(counts, separators=(",", ":")),
         diff_vs_cpu_256=f"{diff:.3e}", score_range=f"{float(scores.min()):.4f}..{float(scores.max()):.4f}",
         ms=f"{ms:.3f}", utt_per_s=f"{BATCH / ms * 1e3:.1f}")
     wall, busy, ranked = device_breakdown(lambda: score(wav))
@@ -1116,7 +1200,7 @@ def phase_fused() -> dict:
         raise AssertionError(f"eval_model: card {card[2]} and CPU {host[2]} differ")
     del wav, feats, scores, scores57
     free()
-    return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff}
+    return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff, "lstm_scan": counts["lstm_scan"]}
 
 
 def train_corpus(n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2860,11 +2944,12 @@ def main() -> int:
     k1 = timed_phase(phase_k1)
     k3 = timed_phase(phase_k3)
     k2 = timed_phase(phase_k2)
-    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"]}
+    k4_timed = timed_phase(phase_k4)
+    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
-    timed_phase(phase_fused)
+    launches["lstm_scan"] += timed_phase(phase_fused)["lstm_scan"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
@@ -2875,6 +2960,7 @@ def main() -> int:
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],
         "ct_mel": k3,
+        "lstm_scan": k4_timed,
     }
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
