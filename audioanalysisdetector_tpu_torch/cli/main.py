@@ -1,6 +1,6 @@
 """Command-line entry points of the PyTorch port.
 
-  score          log-mel + CNN-BiLSTM (or SSL-AASIST) spoof scoring over WAV/FLAC files
+  score          log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA) spoof scoring over WAV/FLAC files
   extract        feature extraction (mfcc/lfcc/cqcc/gtcc/wpt/mel_spectrogram/mfcc_deltas) to .npz
   augment        augmentation on the device: writes noise, pitch and shift WAVs
   serve          HTTP scoring service: dynamic micro-batching in front of the card
@@ -491,7 +491,8 @@ def cmd_score(args) -> int:
     line per file on stdout, then the kernel launch counts of the run as one
     JSON line on stderr. ``--model xlsr-aasist`` scores with SSL-AASIST:
     64,600 samples at 16 kHz, a short clip repeated to fill them
-    (``tile_pad``), and the bona fide logit as the score."""
+    (``tile_pad``), and the bona fide logit as the score; ``--model
+    wavlm-mhfa`` with WavLM-Large + MHFA the same way, on 256,000 samples."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
@@ -504,7 +505,8 @@ def cmd_score(args) -> int:
             "score: no --checkpoint given — scores from randomly initialized "
             "weights are meaningless. Pass --checkpoint <best_model.msgpack> "
             "(a JAX-saved payload) or <state_dict.pt> (torch.save; for "
-            "--model xlsr-aasist the published LA_model.pth), "
+            "--model xlsr-aasist the published LA_model.pth, for --model "
+            "wavlm-mhfa the published WavLM-Large front end), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -513,8 +515,8 @@ def cmd_score(args) -> int:
     if not paths:
         print(f"no WAV files under {args.audio}", file=sys.stderr)
         return 1
-    if args.model == "xlsr-aasist":
-        return _score_xlsr_aasist(args, paths)
+    if args.model in ("xlsr-aasist", "wavlm-mhfa"):
+        return _score_ssl(args, paths)
     mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
     model = init_mel_cnn_bilstm(
         mel_cfg, int(args.seconds * args.sr), checkpoint=args.checkpoint,
@@ -529,24 +531,27 @@ def cmd_score(args) -> int:
     return 0
 
 
-def _score_xlsr_aasist(args, paths: list[str]) -> int:
-    from audioanalysisdetector_tpu_torch.score.e2e import (
-        XLSR_AASIST_SAMPLES,
-        XLSR_AASIST_SR,
-        init_xlsr_aasist,
-        make_xlsr_aasist_scorer,
-    )
+def _score_ssl(args, paths: list[str]) -> int:
+    """``--model xlsr-aasist`` or ``wavlm-mhfa``: raw 16-kHz samples, tiled
+    and cut to the model's input, one bona fide logit a file. WavLM-MHFA
+    takes at most 32 clips a call: at 16 s a clip its first conv map alone
+    is 105 MB a clip."""
+    from audioanalysisdetector_tpu_torch.score import e2e
     from audioanalysisdetector_tpu_torch.score.streaming import score_paths
 
-    if args.sr != XLSR_AASIST_SR:
-        print(f"score: --model xlsr-aasist takes {XLSR_AASIST_SR} Hz audio, not --sr {args.sr}",
-              file=sys.stderr)
+    sr, n, init, make, most = {
+        "xlsr-aasist": (e2e.XLSR_AASIST_SR, e2e.XLSR_AASIST_SAMPLES, e2e.init_xlsr_aasist,
+                        e2e.make_xlsr_aasist_scorer, args.batch_size),
+        "wavlm-mhfa": (e2e.WAVLM_MHFA_SR, e2e.WAVLM_MHFA_SAMPLES, e2e.init_wavlm_mhfa, e2e.make_wavlm_mhfa_scorer,
+                       32),
+    }[args.model]
+    if args.sr != sr:
+        print(f"score: --model {args.model} takes {sr} Hz audio, not --sr {args.sr}", file=sys.stderr)
         return 2
-    model = init_xlsr_aasist(checkpoint=args.checkpoint, device=args.device)
+    model = init(checkpoint=args.checkpoint, device=args.device)
     kept, scores = score_paths(
-        make_xlsr_aasist_scorer(model), paths, device=args.device,
-        seconds=XLSR_AASIST_SAMPLES / XLSR_AASIST_SR, sr=XLSR_AASIST_SR,
-        batch_size=args.batch_size, pad="tile",
+        make(model), paths, device=args.device, seconds=n / sr, sr=sr,
+        batch_size=min(args.batch_size, most), pad="tile",
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "bonafide_logit": float(s)}))
@@ -877,15 +882,16 @@ def build_parser() -> argparse.ArgumentParser:
             "kernel: ct_mel at parity, wave_mel at speech)",
         )
 
-    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST) spoof scoring")
+    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA) spoof scoring")
     sp.add_argument("audio", help="WAV/FLAC directory or glob")
     mel_flags(sp)
     sp.add_argument(
-        "--model", choices=("cnn-bilstm", "xlsr-aasist"), default="cnn-bilstm",
+        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa"), default="cnn-bilstm",
         help="cnn-bilstm: log-mel + CNN-BiLSTM, a spoof probability; "
         "xlsr-aasist: SSL-AASIST (XLS-R 300M + AASIST) on 64,600 raw "
-        "samples, short clips repeated, the bona fide logit (--seconds and "
-        "the mel flags do not apply)",
+        "samples; wavlm-mhfa: WavLM-Large + MHFA on 256,000 raw samples "
+        "(16 s); both repeat short clips and give the bona fide logit "
+        "(--seconds and the mel flags do not apply)",
     )
     sp.add_argument(
         "--batch-size", type=int, default=512,

@@ -486,18 +486,19 @@ def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return g * v / torch.linalg.vector_norm(v, dim=(0, 1), keepdim=True)
 
 
-def _xlsr_name(name: str) -> str | None:
-    """The port's name (under ``xlsr.``) of a published ``Wav2Vec2Model``
-    tensor, or None for one inference does not use."""
-    if name.startswith(_XLSR_UNUSED):
+def _port_name(name: str, prefixes=_XLSR_PREFIXES, unused=_XLSR_UNUSED, root: str = "xlsr.") -> str | None:
+    """The port's name (under ``root``) of a published front-end tensor
+    (``prefixes``: (published, port) pairs, first match wins), or None for
+    one inference does not use (``unused``)."""
+    if name.startswith(unused):
         return None
     parts = name.split(".")
     index = next((p for p in parts if p.isdigit()), None)
-    for pub, port in _XLSR_PREFIXES:
+    for pub, port in prefixes:
         pub = pub.format(i=index)
         if name == pub or (pub.endswith(".") and name.startswith(pub)):
-            return "xlsr." + port.format(i=index) + name[len(pub):]
-    raise KeyError(f"no port tensor for the published XLS-R tensor {name!r}")
+            return root + port.format(i=index) + name[len(pub):]
+    raise KeyError(f"no port tensor for the published tensor {name!r}")
 
 
 def ssl_aasist_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -518,7 +519,7 @@ def ssl_aasist_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor
             sub = name[len(ssl):]
             if sub in ("encoder.pos_conv.0.weight_g", "encoder.pos_conv.0.weight_v"):
                 continue
-            port = _xlsr_name(sub)
+            port = _port_name(sub)
             if port is not None:
                 out[port] = t
         else:
@@ -528,4 +529,60 @@ def ssl_aasist_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor
             out["aasist." + ".".join(parts)] = t
     pos = ssl + "encoder.pos_conv.0."
     out["xlsr.pos_conv.weight"] = fold_weight_norm(state[pos + "weight_g"], state[pos + "weight_v"])
+    return out
+
+
+# huggingface.co/microsoft/wavlm-large (transformers' ``WavLMModel``):
+# (published prefix, port prefix) for the front end, first match wins
+_WAVLM_PREFIXES = (
+    ("feature_extractor.conv_layers.{i}.conv.", "conv.convs.{i}."),
+    ("feature_extractor.conv_layers.{i}.layer_norm.", "conv.norms.{i}."),
+    ("feature_projection.layer_norm.", "feature_norm."),
+    ("feature_projection.projection.", "proj."),
+    ("encoder.pos_conv_embed.conv.bias", "pos_conv.bias"),
+    ("encoder.layers.0.attention.rel_attn_embed.", "rel_attn_embed."),
+    ("encoder.layers.{i}.attention.q_proj.", "layers.{i}.q."),
+    ("encoder.layers.{i}.attention.k_proj.", "layers.{i}.k."),
+    ("encoder.layers.{i}.attention.v_proj.", "layers.{i}.v."),
+    ("encoder.layers.{i}.attention.out_proj.", "layers.{i}.out."),
+    ("encoder.layers.{i}.attention.gru_rel_pos_linear.", "layers.{i}.grep_linear."),
+    ("encoder.layers.{i}.attention.gru_rel_pos_const", "layers.{i}.grep_a"),
+    ("encoder.layers.{i}.layer_norm.", "layers.{i}.attn_norm."),
+    ("encoder.layers.{i}.feed_forward.intermediate_dense.", "layers.{i}.fc1."),
+    ("encoder.layers.{i}.feed_forward.output_dense.", "layers.{i}.fc2."),
+    ("encoder.layers.{i}.final_layer_norm.", "layers.{i}.ffn_norm."),
+    ("encoder.layer_norm.", "norm."),
+)
+# the positional conv's weight norm, as older and newer transformers save it
+_WAVLM_WEIGHT_NORM = (("weight_g", "weight_v"), ("parametrizations.weight.original0",
+                                                  "parametrizations.weight.original1"))
+
+
+def wavlm_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The published WavLM-Large state dict (huggingface.co/microsoft/
+    wavlm-large ``pytorch_model.bin``; its keys under ``wavlm.`` when saved
+    from a model with a head, whose own tensors are not taken) ->
+    ``models.wav2vec2.WavLM``'s, for ``WavLMMHFA.wavlm``.
+
+    The tensors map by ``_WAVLM_PREFIXES``; layer 0's ``rel_attn_embed`` is
+    the one bias embedding; the positional conv's weight norm is folded
+    into one weight (``fold_weight_norm``); ``masked_spec_embed``
+    (pre-training only) is dropped. A state dict with neither spelling of
+    the weight norm (fairseq's ``WavLM-Large.pt``, or one already folded)
+    raises KeyError."""
+    if any(k.startswith("wavlm.") for k in state):
+        state = {k[len("wavlm."):]: v for k, v in state.items() if k.startswith("wavlm.")}
+    pos = "encoder.pos_conv_embed.conv."
+    found = next(((pos + g, pos + v) for g, v in _WAVLM_WEIGHT_NORM if pos + g in state), None)
+    if found is None:
+        expected = " or ".join(f"{pos}{g} / {v}" for g, v in _WAVLM_WEIGHT_NORM)
+        raise KeyError(f"no weight-normed positional conv: expected {expected} (the transformers "
+                       "WavLMModel names; fairseq's WavLM-Large.pt format is not supported)")
+    g, v = found
+    out = {"pos_conv.weight": fold_weight_norm(state[g], state[v])}
+    for name, t in state.items():
+        if name not in (g, v):
+            port = _port_name(name, _WAVLM_PREFIXES, ("masked_spec_embed",), "")
+            if port is not None:
+                out[port] = t
     return out

@@ -1,7 +1,8 @@
 """Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
 classifier, the diagonal GMM (scoring, EM, MAP), their LSTM layers, the
-anti-spoofing ResNet family, MobileNetV2 + MFCA, and SSL-AASIST (the XLS-R
-front end and the AASIST graph-attention back end)."""
+anti-spoofing ResNet family, MobileNetV2 + MFCA, SSL-AASIST (the XLS-R
+front end and the AASIST graph-attention back end), and WavLM-Large with
+multi-head factorized attentive pooling (MHFA)."""
 
 from audioanalysisdetector_tpu_torch.models.aasist import AASIST, SSLAASIST
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
@@ -22,6 +23,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 )
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM, LSTMLayer
+from audioanalysisdetector_tpu_torch.models.mhfa import MHFA, WavLMMHFA
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import (
     MFCAModule,
     MobileNetMFCA,
@@ -34,7 +36,7 @@ from audioanalysisdetector_tpu_torch.models.resnet import (
     ResidualBlock,
     ResNetTrunk,
 )
-from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, XLSRConfig
+from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE, XLSR, WavLM, WavLMConfig, XLSRConfig
 
 __all__ = [
     "AASIST",
@@ -46,12 +48,17 @@ __all__ = [
     "ExtractFeatureResidual",
     "LSTMLayer",
     "MFCAModule",
+    "MHFA",
     "MobileNetMFCA",
     "MobileNetV2Features",
     "MoreFeaturesClassifier",
     "ResNetTrunk",
     "ResidualBlock",
     "SSLAASIST",
+    "WAVLM_LARGE",
+    "WavLM",
+    "WavLMConfig",
+    "WavLMMHFA",
     "XLSR",
     "XLSRConfig",
     "component_log_prob",

@@ -29,15 +29,31 @@ fairseq's ``mask_emb``, quantizer, ``project_q`` and ``final_proj`` serve
 pre-training only and are not built. Dropouts are identities at inference
 and are not built either. ``XLSRConfig()`` is the published shape;
 ``XLSR()`` holds 315,437,568 parameters.
+
+``WavLM`` (Chen et al., IEEE JSTSP 2022, arXiv:2110.13900; the shape of
+huggingface.co/microsoft/wavlm-large ``config.json``: ``WavLMConfig()``,
+``WAVLM_LARGE``) is the same stack with three departures: no conv bias; the
+waveform normalised per utterance first (``F.layer_norm`` over its samples, the published
+``normalize``); and in every layer a gated relative-position bias added to
+the scaled attention logits. The bias: ``P[h, i, j] = E[bucket(j - i), h]``
+from one ``Embedding(320, 16)`` shared by the layers (``relative_buckets``:
+80 exact distances a direction, then 80 logarithmic ones up to 800), and a
+per-layer, per-query gate ``G = a (b grep_a - 1) + 2`` with ``a, b`` the
+sigmoids of ``grep_linear`` over each head's 64 inputs summed in fours
+(``GatedEncoderLayer``). ``WavLM()`` holds 315,451,968 parameters.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -52,6 +68,23 @@ class XLSRConfig:
     pos_kernel: int = 128
     pos_groups: int = 16
     eps: float = 1e-5
+    conv_bias: bool = True
+    normalize: bool = False  # the waveform normalised per utterance first
+
+
+@dataclass(frozen=True)
+class WavLMConfig(XLSRConfig):
+    """WavLM's shape: XLS-R's, no conv bias, the waveform normalised, and
+    its relative-position buckets."""
+
+    conv_bias: bool = False
+    normalize: bool = True
+    rel_buckets: int = 320
+    rel_max_distance: int = 800
+
+
+# huggingface.co/microsoft/wavlm-large config.json: XLS-R's widths
+WAVLM_LARGE = WavLMConfig()
 
 
 class ConvFeatureEncoder(nn.Module):
@@ -61,7 +94,7 @@ class ConvFeatureEncoder(nn.Module):
         super().__init__()
         dims = [1] + [cfg.conv_dim] * len(cfg.conv_kernels)
         self.convs = nn.ModuleList(
-            nn.Conv1d(dims[i], dims[i + 1], k, stride=s)
+            nn.Conv1d(dims[i], dims[i + 1], k, stride=s, bias=cfg.conv_bias)
             for i, (k, s) in enumerate(zip(cfg.conv_kernels, cfg.conv_strides))
         )
         self.norms = nn.ModuleList(nn.LayerNorm(cfg.conv_dim, eps=cfg.eps) for _ in cfg.conv_kernels)
@@ -92,17 +125,42 @@ class EncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, cfg.ffn)
         self.fc2 = nn.Linear(cfg.ffn, d)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def attention_bias(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor | None:
+        """The float mask added to the scaled logits, from the normed input
+        ``x``: ``bias`` as given (None, no mask, for XLS-R)."""
+        return bias
+
+    def forward(self, h: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
         b, t, d = h.shape
         x = self.attn_norm(h)
+        mask = self.attention_bias(x, bias)
 
         def split(y: torch.Tensor) -> torch.Tensor:
             return y.view(b, t, self.heads, d // self.heads).transpose(1, 2)
 
         # scaled by head_dim ** -0.5, as fairseq scales q
-        a = F.scaled_dot_product_attention(split(self.q(x)), split(self.k(x)), split(self.v(x)))
+        a = F.scaled_dot_product_attention(split(self.q(x)), split(self.k(x)), split(self.v(x)), attn_mask=mask)
         h = h + self.out(a.transpose(1, 2).reshape(b, t, d))
         return h + self.fc2(F.gelu(self.fc1(self.ffn_norm(h))))
+
+
+class GatedEncoderLayer(EncoderLayer):
+    """WavLM's layer: ``EncoderLayer`` whose mask is the position bias
+    ``P`` ``(H, T, T)`` gated per head and query by the layer's input."""
+
+    def __init__(self, cfg: XLSRConfig):
+        super().__init__(cfg)
+        self.grep_linear = nn.Linear(cfg.hidden // cfg.heads, 8)
+        self.grep_a = nn.Parameter(torch.ones(1, cfg.heads, 1, 1))
+
+    def attention_bias(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """``G[b, h, i] P[h, i, j]``, ``(B, H, T, T)``."""
+        b, t, d = x.shape
+        with span("wavlm.gated_bias"):
+            g = self.grep_linear(x.view(b, t, self.heads, d // self.heads))  # (B, T, H, 8)
+            g = torch.sigmoid(g.view(b, t, self.heads, 2, 4).sum(-1)).transpose(1, 2)  # (B, H, T, 2)
+            gate = g[..., :1] * (g[..., 1:] * self.grep_a - 1.0) + 2.0
+            return gate * bias
 
 
 class XLSR(nn.Module):
@@ -112,6 +170,8 @@ class XLSR(nn.Module):
     ``encode`` (the positional conv, the layers, the final LayerNorm) are the
     two halves ``score/e2e.py`` puts under spans."""
 
+    layer_type = EncoderLayer
+
     def __init__(self, cfg: XLSRConfig = XLSRConfig()):
         super().__init__()
         self.cfg = cfg
@@ -120,20 +180,77 @@ class XLSR(nn.Module):
         self.proj = nn.Linear(cfg.conv_dim, cfg.hidden)
         self.pos_conv = nn.Conv1d(cfg.hidden, cfg.hidden, cfg.pos_kernel, padding=cfg.pos_kernel // 2,
                                   groups=cfg.pos_groups)
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.layers))
+        self.layers = nn.ModuleList(self.layer_type(cfg) for _ in range(cfg.layers))
         self.norm = nn.LayerNorm(cfg.hidden, eps=cfg.eps)
 
     def features(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.cfg.normalize:
+            wav = F.layer_norm(wav, wav.shape[-1:])
         return self.proj(self.feature_norm(self.conv(wav)))
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def embed_positions(self, x: torch.Tensor) -> torch.Tensor:
+        """The positional conv's output added to its input: the first
+        layer's input."""
         pos = self.pos_conv(x.transpose(1, 2))
         if self.cfg.pos_kernel % 2 == 0:
             pos = pos[..., :-1]  # SamePad
-        h = x + F.gelu(pos).transpose(1, 2)
+        return x + F.gelu(pos).transpose(1, 2)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.embed_positions(x)
         for layer in self.layers:
             h = layer(h)
         return self.norm(h)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         return self.encode(self.features(wav))
+
+
+@lru_cache(maxsize=8)
+def relative_buckets(t: int, buckets: int, max_distance: int, device: torch.device) -> torch.Tensor:
+    """``(T, T)`` int64 bucket of key ``j`` for query ``i``, as the published
+    ``_relative_positions_bucket`` computes it (float32 log on the host):
+    each direction takes half the buckets, ``j > i`` the upper half; of a
+    direction's ``n``, distances below ``n / 2`` are exact and the rest
+    logarithmic up to ``max_distance``, the last bucket taking the farther
+    ones. Integer and a function of T alone, so kept once per (T, device):
+    every caller shares the one tensor and only reads it."""
+    with torch.inference_mode(False):
+        rel = torch.arange(t)[None, :] - torch.arange(t)[:, None]  # key minus query
+        half = buckets // 2
+        exact = half // 2
+        a = rel.abs()
+        far = exact + (torch.log(a.clamp(min=exact).float() / exact) / math.log(max_distance / exact)
+                       * (half - exact)).long()
+        out = (rel > 0).long() * half + torch.where(a < exact, a, far.clamp(max=half - 1))
+        return out.to(device)
+
+
+class WavLM(XLSR):
+    """``(B, n)`` waveforms -> WavLM features (module docstring).
+    ``hidden_states`` gives the 25 states a pooling back end reads: each
+    layer's input, then the final LayerNorm of the last layer's output."""
+
+    layer_type = GatedEncoderLayer
+
+    def __init__(self, cfg: WavLMConfig = WAVLM_LARGE):
+        super().__init__(cfg)
+        self.rel_attn_embed = nn.Embedding(cfg.rel_buckets, cfg.heads)
+
+    def position_bias(self, t: int, device: torch.device) -> torch.Tensor:
+        """``P`` ``(H, T, T)``: each head's bias of every bucket, gathered."""
+        idx = relative_buckets(t, self.cfg.rel_buckets, self.cfg.rel_max_distance, device)
+        return self.rel_attn_embed(idx).permute(2, 0, 1).contiguous()
+
+    def hidden_states(self, x: torch.Tensor) -> list[torch.Tensor]:
+        h = self.embed_positions(x)
+        with span("wavlm.position_bias"):
+            position = self.position_bias(h.shape[1], h.device)
+        states = []
+        for layer in self.layers:
+            states.append(h)
+            h = layer(h, position)
+        return states + [self.norm(h)]
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.hidden_states(x)[-1]

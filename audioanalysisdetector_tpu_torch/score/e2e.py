@@ -5,7 +5,9 @@ mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof probability, and the
 flagship CQCC -> GMM ⊕ BiLSTM fused scorer, with nothing on the host
 between the waveform upload and the ``(B,)`` scores. The port alone also
 scores with SSL-AASIST (``models/aasist.py``): 64,600 raw samples -> XLS-R
--> AASIST -> the bona fide logit.
+-> AASIST -> the bona fide logit; and with WavLM-Large + MHFA
+(``models/mhfa.py``): whole 16-s clips, 256,000 samples -> WavLM's 25
+hidden states -> MHFA -> the bona fide logit.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
 from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
+from audioanalysisdetector_tpu_torch.models.mhfa import WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, WavLM
 from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
@@ -28,6 +32,10 @@ from audioanalysisdetector_tpu_torch.utils.profiling import span
 # ``pad`` length (score/streaming.py::tile_pad)
 XLSR_AASIST_SR = 16000
 XLSR_AASIST_SAMPLES = 64600
+# WavLM-Large + MHFA's input: 256,000 samples (16.0 s) at 16 kHz, whole
+# clips within WavLM's relative-position horizon (800 frames)
+WAVLM_MHFA_SR = 16000
+WAVLM_MHFA_SAMPLES = 256000
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -165,29 +173,49 @@ def make_cqcc_fused_scorer(
     return score
 
 
-def _init_ssl_aasist(model: SSLAASIST, generator: torch.Generator) -> None:
-    """Initialisation scales of the published code, drawn from ``generator``:
-    fairseq's for XLS-R (Kaiming normal conv encoder, ``init_bert_params``
-    N(0, 0.02) for the transformer's linear layers with zero biases, the
-    positional conv N(0, sqrt(4 / (k * hidden))) with zero bias), torch's
-    defaults for ``proj`` and the back end (uniform +-1/sqrt(fan_in),
-    Xavier-normal attention weights, N(0, 1) ``pos_S`` and master nodes);
-    norms keep weight 1, bias 0 and unit running statistics."""
-    xlsr, cfg = model.xlsr, model.xlsr.cfg
+def _init_front_end(xlsr: XLSR, generator: torch.Generator) -> None:
+    """fairseq's initialisation of an XLS-R or WavLM front end past
+    torch's defaults, drawn from ``generator``: Kaiming normal conv
+    encoder, ``init_bert_params`` N(0, 0.02) for the transformer's linear
+    layers (WavLM's gate ``grep_linear`` among them) with zero biases, the
+    positional conv N(0, sqrt(4 / (k * hidden))) with zero bias; WavLM's
+    bias embedding N(0, 1), its ``grep_a`` left at ones."""
+    cfg = xlsr.cfg
+    with torch.no_grad():
+        for conv in xlsr.conv.convs:
+            conv.weight.normal_(0.0, (2.0 / conv.weight[0].numel()) ** 0.5, generator=generator)
+        for layer in xlsr.layers:
+            for lin in layer.modules():
+                if isinstance(lin, torch.nn.Linear):
+                    lin.weight.normal_(0.0, 0.02, generator=generator)
+                    lin.bias.zero_()
+        xlsr.pos_conv.weight.normal_(0.0, (4.0 / (cfg.pos_kernel * cfg.hidden)) ** 0.5, generator=generator)
+        xlsr.pos_conv.bias.zero_()
+        if isinstance(xlsr, WavLM):
+            xlsr.rel_attn_embed.weight.normal_(generator=generator)
+
+
+def _init_uniform(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """torch's default bounds for every conv and dense layer of ``model``,
+    drawn from ``generator``: uniform in +-1/sqrt(fan_in)."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)):
                 bound = mod.weight[0].numel() ** -0.5
                 mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
-        for conv in xlsr.conv.convs:
-            conv.weight.normal_(0.0, (2.0 / conv.weight[0].numel()) ** 0.5, generator=generator)
-        for layer in xlsr.layers:
-            for lin in (layer.q, layer.k, layer.v, layer.out, layer.fc1, layer.fc2):
-                lin.weight.normal_(0.0, 0.02, generator=generator)
-                lin.bias.zero_()
-        xlsr.pos_conv.weight.normal_(0.0, (4.0 / (cfg.pos_kernel * cfg.hidden)) ** 0.5, generator=generator)
-        xlsr.pos_conv.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.uniform_(-bound, bound, generator=generator)
+
+
+def _init_ssl_aasist(model: SSLAASIST, generator: torch.Generator) -> None:
+    """Initialisation scales of the published code, drawn from ``generator``:
+    fairseq's for XLS-R (``_init_front_end``), torch's defaults for
+    ``proj`` and the back end (uniform +-1/sqrt(fan_in), Xavier-normal
+    attention weights, N(0, 1) ``pos_S`` and master nodes); norms keep
+    weight 1, bias 0 and unit running statistics."""
+    _init_uniform(model, generator)
+    _init_front_end(model.xlsr, generator)
+    with torch.no_grad():
         for name, p in model.aasist.named_parameters():
             if name.startswith(("pos_S", "master")):
                 p.normal_(generator=generator)
@@ -241,6 +269,60 @@ def make_xlsr_aasist_scorer(model: SSLAASIST) -> Callable[[torch.Tensor], torch.
                 x = model.aasist.encode(feats)
                 with span("aasist.graph"):
                     return model.aasist.graph(x)[:, 1]
+
+    return score
+
+
+def init_wavlm_mhfa(
+    *,
+    checkpoint: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> WavLMMHFA:
+    """WavLM-Large + MHFA at the published widths in eval mode on ``device``.
+
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` at the
+    published initialisation scales: fairseq's for the front end
+    (``_init_front_end``), torch's defaults for ``proj`` and MHFA's linear
+    layers, MHFA's layer weights zero (a uniform mix). With ``checkpoint``:
+    the published front end (huggingface.co/microsoft/wavlm-large
+    ``pytorch_model.bin``, converted by ``convert.wavlm_to_port``) replaces
+    the front end and keeps the seeded back end; a ``torch.save`` state dict
+    of this model replaces every tensor. Either must fit exactly."""
+    from audioanalysisdetector_tpu_torch.convert import wavlm_to_port
+
+    model = WavLMMHFA()
+    generator = torch.Generator().manual_seed(seed)
+    _init_uniform(model, generator)
+    _init_front_end(model.wavlm, generator)
+    if checkpoint:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "wavlm.conv.convs.0.weight" in state:
+            model.load_state_dict(state)
+        else:
+            model.wavlm.load_state_dict(wavlm_to_port(state))
+    return model.to(device).eval()
+
+
+def make_wavlm_mhfa_scorer(model: WavLMMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, 256000) -> (B,)`` bona fide logits (``logits[:, 1]``), on the
+    model's device, under ``torch.inference_mode()`` with TF32 off
+    (``ieee_fp32``). Spans: ``wavlm.features`` and ``wavlm.encoder`` (which
+    holds ``wavlm.position_bias`` once and ``wavlm.gated_bias`` once a
+    layer) inside ``score.frontend``, ``mhfa.pool`` inside ``score.model``."""
+    ieee_fp32()
+    model.eval()
+
+    @torch.inference_mode()
+    def score(wav: torch.Tensor) -> torch.Tensor:
+        with span("score.call"):
+            with span("score.frontend"):
+                with span("wavlm.features"):
+                    feats = model.wavlm.features(wav)
+                with span("wavlm.encoder"):
+                    states = model.wavlm.hidden_states(feats)
+            with span("score.model"):
+                return model.mhfa(states)[:, 1]
 
     return score
 

@@ -22,13 +22,27 @@ and names the card's idle gaps by span path;
   completed in a window divide every per-call reading, and its device
   operations are the launches a call.
 - ``score.frontend``: the scorer's features (log-mel; CQCC, transpose and
-  scale; XLS-R): the frontend's device ms a call.
+  scale; XLS-R; WavLM's 25 hidden states): the frontend's device ms a call.
 - ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``;
-  AASIST): the model's device ms a call.
+  AASIST; MHFA): the model's device ms a call.
 - ``xlsr.features``, ``xlsr.encoder``: SSL-AASIST's frontend in two
   (the conv feature encoder and projection; the positional conv, the 24
   transformer layers and the final LayerNorm), inside ``score.frontend``:
   each half's device ms a call.
+- ``wavlm.features``, ``wavlm.encoder``: WavLM-MHFA's frontend in two
+  (the waveform's normalisation, the conv feature encoder and projection;
+  the positional conv, the 24 gated layers and the final LayerNorm),
+  inside ``score.frontend``: each half's device ms a call.
+- ``wavlm.position_bias``: the bucket table (built once per T and device)
+  gathered into the ``(H, T, T)`` position bias, once a call inside
+  ``wavlm.encoder``: its device ms a call.
+- ``wavlm.gated_bias``: one layer's gate and its product with the
+  position bias (``models/wav2vec2.py::GatedEncoderLayer``), 24 a call
+  inside ``wavlm.encoder``: the gated bias's device ms a call (planned
+  ``span.wavlm_bias_ms.score``).
+- ``mhfa.pool``: MHFA's layer mixes, compressions and attentive pooling
+  (``models/mhfa.py``), inside ``score.model``: the pooling's device ms a
+  call.
 - ``aasist.graph``: AASIST from its node sets to the readout (graph
   attention, pools, both branches), inside ``score.model``: the graph
   layers' device ms a call.

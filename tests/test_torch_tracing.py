@@ -7,6 +7,7 @@ happens; ``ServeStats`` sums queue wait, dispatch and parse time on the host
 clock and ``GET /v1/stats`` returns them.
 """
 
+import dataclasses
 import json
 import threading
 import urllib.request
@@ -22,9 +23,15 @@ from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
+from audioanalysisdetector_tpu_torch.models.mhfa import WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE
 from audioanalysisdetector_tpu_torch.ops.ct_mel import ct_mel_unpadded
 from audioanalysisdetector_tpu_torch.ops.wave_mel import wave_mel_unpadded
-from audioanalysisdetector_tpu_torch.score.e2e import make_cqcc_fused_scorer, make_mel_cnn_bilstm_scorer
+from audioanalysisdetector_tpu_torch.score.e2e import (
+    make_cqcc_fused_scorer,
+    make_mel_cnn_bilstm_scorer,
+    make_wavlm_mhfa_scorer,
+)
 from audioanalysisdetector_tpu_torch.serve.server import BatchingScorer, ScoreServer
 from audioanalysisdetector_tpu_torch.train import loop
 from audioanalysisdetector_tpu_torch.train.optimizers import make_optimizer
@@ -78,10 +85,18 @@ def test_span_off_is_the_shared_noop():
     assert [s[0] for s in _spans(prof)] == ["on.span"]
 
 
+def _wavlm_scorer():
+    torch.manual_seed(0)
+    cfg = dataclasses.replace(WAVLM_LARGE, conv_dim=16, hidden=32, heads=2, ffn=64, layers=2, pos_kernel=8,
+                              pos_groups=2, rel_buckets=16, rel_max_distance=20)
+    return make_wavlm_mhfa_scorer(WavLMMHFA(cfg, heads=4, compression=8, outputs=8))
+
+
 @pytest.mark.parametrize(
     "make,inner,absent",
-    [(_mel_scorer, [], ["lstm.last_only"]), (_fused_scorer, ["fused.gmm", "lstm.last_only"], [])],
-    ids=["mel", "fused"],
+    [(_mel_scorer, [], ["lstm.last_only"]), (_fused_scorer, ["fused.gmm", "lstm.last_only"], []),
+     (_wavlm_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm"])],
+    ids=["mel", "fused", "wavlm"],
 )
 def test_scorer_spans_nest(make, inner, absent):
     score = make()
