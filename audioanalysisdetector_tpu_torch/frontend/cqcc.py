@@ -54,7 +54,8 @@ def _linear_regrid_matrix(n_bins: int, fmin: float, bins_per_octave: int) -> np.
 @lru_cache(maxsize=None)
 def _regrid_on(cqt_cfg: CQTConfig, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     W = _linear_regrid_matrix(cqt_cfg.n_bins, cqt_cfg.fmin, cqt_cfg.bins_per_octave)
-    return torch.from_numpy(W).to(device, dtype)
+    with torch.inference_mode(False):  # cached: a normal tensor, usable where autograd records
+        return torch.from_numpy(W).to(device, dtype)
 
 
 @dataclass(frozen=True)
@@ -76,7 +77,16 @@ def cqcc_from_cqt_mag(mag: torch.Tensor, cfg: CQCCConfig = CQCCConfig()) -> torc
 
 
 def cqcc(y: torch.Tensor, cfg: CQCCConfig = CQCCConfig()) -> torch.Tensor:
-    """CQCC of ``(..., n)`` waveforms -> ``(..., n_ceps, T)`` (19, 63 for 2 s)."""
+    """CQCC of ``(..., n)`` waveforms -> ``(..., n_ceps, T)`` (19, 63 for 2 s).
+
+    On the card, where ``ops/cqcc.py::takes`` holds (float32, the default
+    configuration, a length that is a multiple of 64 up to 32,704, no
+    backward to come), one launch of K5; otherwise the plain chain."""
+    # imported here: ops/cqcc.py builds its tables from this module's operators
+    from audioanalysisdetector_tpu_torch.ops import cqcc as k5
+
+    if k5.takes(y, cfg):
+        return k5.cqcc_kernel(y, cfg)
     return cqcc_from_cqt_mag(cqt(y, cfg.cqt), cfg)
 
 

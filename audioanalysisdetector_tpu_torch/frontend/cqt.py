@@ -158,9 +158,12 @@ def _decim_block_for(n: int) -> int | None:
 
 @lru_cache(maxsize=None)
 def _on(array_fn, args: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """``array_fn(*args)`` (a cached host operator) uploaded once per device and dtype."""
+    """``array_fn(*args)`` (a cached host operator) uploaded once per device and
+    dtype, as a normal tensor even inside ``inference_mode``, so a later call
+    that autograd records can use it."""
     a = array_fn(*args)
-    return torch.from_numpy(a[0] if isinstance(a, tuple) else a).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(a[0] if isinstance(a, tuple) else a).to(device, dtype)
 
 
 def _decimate2(y: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,8 @@ def dct_ii_matrix(n: int, n_out: int | None = None) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _matrix_on(n: int, n_out: int | None, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(dct_ii_matrix(n, n_out)).to(device, dtype)
+    with torch.inference_mode(False):  # cached: a normal tensor, usable where autograd records
+        return torch.from_numpy(dct_ii_matrix(n, n_out)).to(device, dtype)
 
 
 def dct_ii(x: torch.Tensor, *, axis: int = -2, n_out: int | None = None) -> torch.Tensor:

@@ -7,6 +7,9 @@
   (the parity mel step).
 - ``lstm_scan``    K4: the inference LSTM recurrence (hidden 128, fp32) of
   ``models/lstm.py::BiLSTM``, a layer's directions in one launch.
+- ``cqcc``         K5: the CQCC of raw waveforms (CQT, dB, regrid, log,
+  DCT) in one launch; ``frontend/cqcc.py::cqcc`` routes to it, and its
+  plain chain is K5's plain version.
 
 Each wrapper runs its plain version on a CPU tensor (``on_card`` is False)
 and hands a CUDA tensor's operands to ``launch``, the one launch path: it
@@ -24,7 +27,7 @@ import threading
 
 import torch
 
-LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan")
+LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc")
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads
 

@@ -61,6 +61,10 @@ and names the card's idle gaps by span path;
   (the first BiLSTM's two directions; the second's forward scan, inside
   ``lstm.last_only``), none in the mel scorer (hidden 32 keeps cuDNN) and
   none where a backward is asked: the recurrence's device ms a call.
+- ``cqcc.kernel``: one launch of K5, the CQCC of raw waveforms
+  (``ops/cqcc.py``, routed by ``frontend/cqcc.py::cqcc``): one a fused
+  scorer call on the card inside ``score.frontend``, none on the CPU, in
+  the mel scorer or where a backward is asked: the CQCC's device ms a call.
 - ``serve.collect``: ``BatchingScorer`` gathering one dispatch after its
   first slice arrived, on the batcher's thread: the host gaps of a
   serving trace.

@@ -13,8 +13,8 @@ each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
-   ``ops/csrc/ct_mel.cu`` (K3) and ``ops/csrc/lstm_scan.cu`` (K4) with nvcc,
-   one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+   ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` (K4) and
+   ``ops/csrc/cqcc.cu`` (K5) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
    (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
@@ -45,6 +45,11 @@ each print their lines:
    and ``nn.LSTM`` (cuDNN, a yardstick only), one launch each; the kernel,
    plain and cuDNN times in turns beside the bound and the input
    projection's time; a ``BiLSTM`` call with grad enabled keeps cuDNN;
+5c. K5: ``cqcc`` (raw waveform to CQCC in one launch) under ``cqcc()``
+   against the plain chain on the card (B=8192 2-s clips, a ragged 13,
+   silence, 1 s, 512 and 32,704 samples, a 3-D batch), frames whose
+   regridded dB lies within 1e-3 of 0 left out; the kernel and plain times
+   in turns beside the bound at B=8192; refused inputs keep the plain chain;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -58,12 +63,13 @@ each print their lines:
    (``make_cqcc_fused_scorer``) at full width (BiLSTM hidden 128, two
    128-component GMMs, 84-bin CQT, 19 CQCCs) on B=8192 two-second
    utterances: ms per batch, utt/s, K4's launches a call (2: its BiLSTMs'
-   recurrences) and a ``torch.profiler`` breakdown, 256 rows against the
+   recurrences), K5's (1: the frontend, whose device work is K5 alone, no
+   CQT SGEMM) and a ``torch.profiler`` breakdown, 256 rows against the
    port on the CPU; the same features through
    ``make_fused_scorer`` with the deltas + CMVN frame transform (D = 57
    GMMs); ``eval_model`` over a model dir written with ``to_numpy``, on the
    card and on the CPU. The path reaches no TPU kernel (XLA computed it in
-   the JAX package): cuBLAS, and K4 for the recurrences;
+   the JAX package): K5 for the CQCC, K4 for the recurrences, cuBLAS;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -195,7 +201,15 @@ from audioanalysisdetector_tpu_torch.convert import (
     random_flax_resnet,
 )
 from audioanalysisdetector_tpu_torch.data.scaler import FrameScaler
-from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig, cqcc, transpose_cqcc
+from audioanalysisdetector_tpu_torch.frontend.cqcc import (
+    CQCCConfig,
+    _regrid_on,
+    cqcc,
+    cqcc_from_cqt_mag,
+    transpose_cqcc,
+)
+from audioanalysisdetector_tpu_torch.frontend.cqt import cqt
+from audioanalysisdetector_tpu_torch.frontend.db import amplitude_to_db
 from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
 from audioanalysisdetector_tpu_torch.frontend.mel import (
     MelConfig,
@@ -239,6 +253,7 @@ from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, Mo
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
+from audioanalysisdetector_tpu_torch.ops import cqcc as k5
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
@@ -368,6 +383,7 @@ KERNEL_SOURCES = {
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
     "ct_mel": ("ops/csrc/ct_mel.cu", "audioanalysisdetector_tpu/ops/ct_mel.py:154"),
     "lstm_scan": ("ops/csrc/lstm_scan.cu", "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under nn.LSTM"),
+    "cqcc": ("ops/csrc/cqcc.cu", "no TPU kernel: the plain CQT -> CQCC chain's SGEMMs, cat and elementwise passes"),
 }
 # K4 against its plain version, both fp32 on the card: the same steps, the
 # h W_hh^T sums taken in other orders over 63 steps (an H100 read 1.8e-7)
@@ -375,6 +391,15 @@ LSTM_PLAIN_TOL = 2e-6
 # K4 against cuDNN's LSTM, which rounds its input product and its gates
 # otherwise (the plain version and K4 alike read up to 8.1e-6 from it)
 LSTM_CUDNN_TOL = 5e-5
+# K5 against the plain chain on the card, both fp32, on the coefficients
+# (up to ~60; -253 for silence): the CQT's sums in other orders and |X|^2
+# without the sqrt move a bin's dB by a few ulps; the log quirk
+# log(dB^2 + 1e-12) multiplies that by 2 / |dB|, so frames whose regridded dB
+# lies within the fused cell's min_abs_interp_db (1e-3) of 0 are left out, as
+# the benchmark's reference leaves them out. An H100 read 1.24e-3 at most
+# (K5 4.4e-4 and the plain chain 8.0e-4 from the plain chain in float64)
+K5_TOL = 5e-3
+K5_MIN_ABS_INTERP_DB = 1e-3
 
 
 def log(phase: str, **kv) -> None:
@@ -582,7 +607,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel", "lstm_scan")
+    libs = ("wave_mel", "ct_mel", "lstm_scan", "cqcc")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -904,6 +929,82 @@ def phase_k4() -> dict:
             "layer2_ms": out["layer2"]["ms"]}
 
 
+def plain_cqcc(y: torch.Tensor, cfg: CQCCConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain chain's CQCC of ``y`` (B, n) and each frame's smallest
+    |regridded dB| (B, T), where the log quirk is steepest."""
+    mag = cqt(y, cfg.cqt)
+    interp = _regrid_on(cfg.cqt, y.device, y.dtype) @ amplitude_to_db(mag, ref="max")
+    return cqcc_from_cqt_mag(mag, cfg), interp.abs().amin(dim=-2)
+
+
+def cqcc_bound(batch: int, n: int) -> dict:
+    """The least time the card could take for the CQCC of ``batch`` clips of
+    ``n`` samples (``ops/csrc/cqcc.cu``'s bound): the larger of the
+    yardstick's operations (``cqcc_ops``) at FP32_FLOP_PER_S and the bytes,
+    the waveform read once and the (19, T) output written once, at
+    HBM_BYTES_PER_S."""
+    bench_cfg = json.loads((ROOT / "portbench" / "configs" / "cqcc-fused.json").read_text())
+    ops = batch * cqcc_ops({**bench_cfg, "n_samples": n})
+    bytes_ = 4 * batch * (n + k5.N_CEPS * (1 + n // 512))
+    ops_ms, bytes_ms = ops / FP32_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def phase_k5() -> dict:
+    """K5 vs the plain chain: B=8192 2-s clips, a ragged 13, silence, 1 s,
+    the shortest and longest lengths it takes and a 3-D batch, each one
+    launch under ``cqcc()``; the kernel and plain times in turns beside the
+    bound at B=8192; inputs it refuses keep the plain chain."""
+    cfg = CQCCConfig()
+    out = {}
+    cases = (("random", (BATCH,), N_SAMPLES), ("ragged", (13,), N_SAMPLES), ("silence", (64,), N_SAMPLES),
+             ("n16000", (64,), 16000), ("n512", (7,), 512), ("n32704", (64,), k5.MAX_LENGTH),
+             ("batch3d", (2, 8), N_SAMPLES))
+    worst = 0.0
+    for name, lead, n in cases:
+        rows = int(np.prod(lead))
+        y = torch.zeros(rows, n, device=DEVICE) if name == "silence" else waves(rows, 31 + n, n)
+        with torch.inference_mode():
+            got, counts = run_counted(lambda: cqcc(y.reshape(*lead, n), cfg))
+            ref, small = plain_cqcc(y, cfg)
+        got = got.reshape(rows, k5.N_CEPS, -1)
+        keep = torch.ones_like(small, dtype=torch.bool) if name == "silence" else small >= K5_MIN_ABS_INTERP_DB
+        err = float(((got - ref).abs() * keep[:, None, :]).max())
+        worst = max(worst, err)
+        # both fp32 chains against the plain chain in float64, on up to 64 rows
+        ref64 = plain_cqcc(y[:64].double(), cfg)[0]
+        k64, p64 = (float(((a[:64] - ref64).abs() * keep[:64, None, :]).max()) for a in (got, ref))
+        log("k5", case=name, shape="x".join(map(str, (*lead, n))), launches=counts["cqcc"],
+            frames_compared=f"{int(keep.sum())}/{keep.numel()}", max_abs_err=f"{err:.3e}",
+            all_frames_err=f"{float((got - ref).abs().max()):.3e}", kernel_vs_f64=f"{k64:.3e}",
+            plain_vs_f64=f"{p64:.3e}", finite=bool(torch.isfinite(got).all()))
+        if counts["cqcc"] != 1 or err > K5_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K5 {name}: {counts}, {err:.3e} from the plain chain (> {K5_TOL}?)")
+        del got, ref, small, ref64
+    y = waves(BATCH, 7)
+    with torch.inference_mode():
+        kern = lambda: k5.cqcc_kernel(y, cfg)  # noqa: E731
+        plain = lambda: cqcc_from_cqt_mag(cqt(y, cfg.cqt), cfg)  # noqa: E731
+        t = in_turns(kern, plain)
+        peak = extra_bytes(kern), extra_bytes(plain)
+    bound = cqcc_bound(BATCH, N_SAMPLES)
+    log("k5", batch=BATCH, n=N_SAMPLES, kernel_ms=f"{t['ms']:.3f}", plain_ms=f"{t['plain_ms']:.3f}",
+        kernel_runs="%.3f,%.3f" % t["runs"], plain_runs="%.3f,%.3f" % t["plain_runs"],
+        kernel_tflops=f"{bound['ops_ms'] * FP32_FLOP_PER_S / 1e3 / t['ms'] / 1e9:.2f}",
+        extra_bytes_kernel=peak[0], extra_bytes_plain=peak[1], **bound_fields(t, bound))
+    # refused inputs keep the plain chain: grad on an input that requires grad, a length off 64
+    for why, y2 in (("grad", waves(4, 3).requires_grad_(True)), ("length", waves(4, 3, N_SAMPLES + 1))):
+        _, counts = run_counted(lambda: cqcc(y2, cfg))
+        if counts["cqcc"]:
+            raise AssertionError(f"K5 launched on an input refused for {why}")
+        log("k5", refused=why, launches=counts["cqcc"])
+    out = {**t, **bound, "max_abs_err": worst}
+    del y
+    free()
+    return out
+
+
 def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     """Independent float64 mel power: numpy rfft of reflect-padded frames."""
     pad = cfg.n_fft // 2
@@ -1142,6 +1243,14 @@ def phase_fused() -> dict:
         raise AssertionError("fused: scores not finite in (0, 1)")
     if counts["lstm_scan"] != 2:  # layer 1's two directions in one launch, layer 2's forward scan
         raise AssertionError(f"fused: {counts['lstm_scan']} K4 launches a call, not 2")
+    if counts["cqcc"] != 1:  # the frontend: K5, raw waveform to CQCC
+        raise AssertionError(f"fused: {counts['cqcc']} K5 launches a call, not 1")
+    with torch.inference_mode():
+        _, front_ms, front = device_breakdown(lambda: cqcc(wav, cfg), iters=3)
+    front_names = [name for _, _, name in front]
+    log("fused", frontend_device_ms=f"{front_ms:.3f}", frontend_kernels=json.dumps(front_names))
+    if len(front_names) != 1 or "cqcc" not in front_names[0]:  # no CQT SGEMM, cat or copy left
+        raise AssertionError(f"fused: the frontend ran {front_names}, not K5 alone")
     model_c, g_c, s_c = fused_models("cpu")
     cpu = make_cqcc_fused_scorer(model_c, g_c, s_c, cfg, scaler_mean=scaler.mean, scaler_std=scaler.std)
     diff = float((scores[:256].cpu() - cpu(wav[:256].cpu())).abs().max())
@@ -1156,6 +1265,7 @@ def phase_fused() -> dict:
         tflops=f"{sum(flop.values()) / ms / 1e9:.2f}")
     log("fused", batch=BATCH, cqcc=f"{cfg.cqt.n_bins}bins/hop{cfg.cqt.hop_length}/{cfg.n_ceps}ceps",
         gmm_components=g.n_components, bilstm_hidden=128, lstm_scan_launches_per_call=counts["lstm_scan"],
+        cqcc_launches_per_call=counts["cqcc"],
         kernel_launches=json.dumps(counts, separators=(",", ":")),
         diff_vs_cpu_256=f"{diff:.3e}", score_range=f"{float(scores.min()):.4f}..{float(scores.max()):.4f}",
         ms=f"{ms:.3f}", utt_per_s=f"{BATCH / ms * 1e3:.1f}")
@@ -1200,7 +1310,8 @@ def phase_fused() -> dict:
         raise AssertionError(f"eval_model: card {card[2]} and CPU {host[2]} differ")
     del wav, feats, scores, scores57
     free()
-    return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff, "lstm_scan": counts["lstm_scan"]}
+    return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff, "lstm_scan": counts["lstm_scan"],
+            "cqcc": counts["cqcc"]}
 
 
 def train_corpus(n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1697,8 +1808,9 @@ def phase_features() -> dict:
     and lfcc) against ``extract_feature_array``; the ``augment`` CLI; and
     ``train-asvspoof --augment`` on phase 11's corpus. Returns the launches
     of K3 on the feature paths. The mel features run K3 (``mel_route`` at
-    n_fft 2048 / hop 512); the rest ran on XLA in the JAX package, so it is
-    plain PyTorch here (cuBLAS, cuDNN, elementwise passes)."""
+    n_fft 2048 / hop 512) and the cqcc feature K5; the rest ran on XLA in
+    the JAX package, so it is plain PyTorch here (cuBLAS, cuDNN, elementwise
+    passes)."""
     from audioanalysisdetector_tpu_torch.data.augment import (
         AUG_NOISE,
         AUG_NONE,
@@ -1726,6 +1838,9 @@ def phase_features() -> dict:
             peak = torch.cuda.max_memory_allocated()
             if name in on_k3:
                 launches += expect_launched(counts, "ct_mel", f"features {name}")
+            elif name == "cqcc":  # K5: the whole CQCC in one launch
+                if counts != {**dict.fromkeys(counts, 0), "cqcc": 1}:
+                    raise AssertionError(f"features cqcc: launched {counts}, not one K5 launch")
             elif any(counts.values()):
                 raise AssertionError(f"features {name}: launched {counts}, no kernel is on its path")
             if out.device.type != torch.device(DEVICE).type or out.shape[0] != BATCH or not bool(torch.isfinite(out).all()):
@@ -1734,7 +1849,8 @@ def phase_features() -> dict:
             ms = cuda_ms(lambda: fn(wav), 3)
             err = feature_error(out[:256].cpu(), fn(wav_cpu))
             log("features", name=name, batch=BATCH, shape="x".join(map(str, out.shape[1:])),
-                ct_mel_launches=counts["ct_mel"], ms=f"{ms:.3f}", utt_per_s=f"{BATCH / ms * 1e3:.1f}",
+                ct_mel_launches=counts["ct_mel"], cqcc_launches=counts["cqcc"], ms=f"{ms:.3f}",
+                utt_per_s=f"{BATCH / ms * 1e3:.1f}",
                 peak_mem_gb=f"{peak / 1e9:.3f}", rel_err_vs_cpu=f"{err:.3e}")
             if err > FEATURE_RTOL[name]:
                 raise AssertionError(f"features {name}: card vs CPU {err:.3e} > {FEATURE_RTOL[name]}")
@@ -2945,11 +3061,14 @@ def main() -> int:
     k3 = timed_phase(phase_k3)
     k2 = timed_phase(phase_k2)
     k4_timed = timed_phase(phase_k4)
-    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0}
+    k5_timed = timed_phase(phase_k5)
+    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0, "cqcc": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
-    launches["lstm_scan"] += timed_phase(phase_fused)["lstm_scan"]
+    fused = timed_phase(phase_fused)
+    launches["lstm_scan"] += fused["lstm_scan"]
+    launches["cqcc"] += fused["cqcc"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
@@ -2961,6 +3080,7 @@ def main() -> int:
         "fused_mel_from_frames": k2[("parity", "float32")],
         "ct_mel": k3,
         "lstm_scan": k4_timed,
+        "cqcc": k5_timed,
     }
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -42,7 +42,7 @@ def _zeros() -> dict[str, int]:
 
 
 def test_the_ledger_keeps_every_counter_in_order():
-    assert ops.LAUNCH_COUNTERS[:4] == ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect")
+    assert ops.LAUNCH_COUNTERS == ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc")
     assert tuple(ops.launch_counts()) == ops.LAUNCH_COUNTERS
     counts = ops.launch_counts()
     counts["ct_mel"] += 1  # a copy: the ledger is unchanged
@@ -75,6 +75,15 @@ def test_launch_appends_the_stream_and_counts_each_named_counter_once(fake_card)
     ops.launch(entry, torch.zeros(3), "wave_mel", 9, rows=3)
     assert entry.calls == [(7, 8.5, STREAM), (9, STREAM)]
     assert ops.launch_counts() == {**_zeros(), "ct_mel": 1, "ct_mel.reflect": 1, "wave_mel": 1}
+
+
+@pytest.mark.parametrize("kernel", ["lstm_scan", "cqcc"])
+def test_each_kernel_counts_on_its_own_counter(fake_card, kernel):
+    entry = FakeEntry()
+    ops.launch(entry, torch.zeros(4), kernel, 5, rows=4)
+    ops.launch(entry, torch.zeros(4), kernel, 6, rows=4)
+    assert entry.calls == [(5, STREAM), (6, STREAM)]
+    assert ops.launch_counts() == {**_zeros(), kernel: 2}
 
 
 def test_a_failed_launch_raises_and_is_not_counted(fake_card):
