@@ -492,7 +492,8 @@ def cmd_score(args) -> int:
     JSON line on stderr. ``--model xlsr-aasist`` scores with SSL-AASIST:
     64,600 samples at 16 kHz, a short clip repeated to fill them
     (``tile_pad``), and the bona fide logit as the score; ``--model
-    wavlm-mhfa`` with WavLM-Large + MHFA the same way, on 256,000 samples."""
+    wavlm-mhfa`` with WavLM-Large + MHFA and ``--model w2vbert-mhfa`` with
+    w2v-BERT 2.0 + MHFA the same way, on 256,000 samples."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
@@ -506,7 +507,8 @@ def cmd_score(args) -> int:
             "weights are meaningless. Pass --checkpoint <best_model.msgpack> "
             "(a JAX-saved payload) or <state_dict.pt> (torch.save; for "
             "--model xlsr-aasist the published LA_model.pth, for --model "
-            "wavlm-mhfa the published WavLM-Large front end), "
+            "wavlm-mhfa the published WavLM-Large front end, for --model "
+            "w2vbert-mhfa the published w2v-BERT 2.0 front end), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -515,7 +517,7 @@ def cmd_score(args) -> int:
     if not paths:
         print(f"no WAV files under {args.audio}", file=sys.stderr)
         return 1
-    if args.model in ("xlsr-aasist", "wavlm-mhfa"):
+    if args.model in ("xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa"):
         return _score_ssl(args, paths)
     mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
     model = init_mel_cnn_bilstm(
@@ -532,10 +534,11 @@ def cmd_score(args) -> int:
 
 
 def _score_ssl(args, paths: list[str]) -> int:
-    """``--model xlsr-aasist`` or ``wavlm-mhfa``: raw 16-kHz samples, tiled
-    and cut to the model's input, one bona fide logit a file. WavLM-MHFA
-    takes at most 32 clips a call: at 16 s a clip its first conv map alone
-    is 105 MB a clip."""
+    """``--model xlsr-aasist``, ``wavlm-mhfa`` or ``w2vbert-mhfa``: raw
+    16-kHz samples, tiled and cut to the model's input, one bona fide logit
+    a file. The two 16-s models take at most 32 clips a call: WavLM-MHFA's
+    first conv map alone is 105 MB a clip, w2v-BERT's attention mask 41 MB
+    a clip and layer."""
     from audioanalysisdetector_tpu_torch.score import e2e
     from audioanalysisdetector_tpu_torch.score.streaming import score_paths
 
@@ -544,6 +547,8 @@ def _score_ssl(args, paths: list[str]) -> int:
                         e2e.make_xlsr_aasist_scorer, args.batch_size),
         "wavlm-mhfa": (e2e.WAVLM_MHFA_SR, e2e.WAVLM_MHFA_SAMPLES, e2e.init_wavlm_mhfa, e2e.make_wavlm_mhfa_scorer,
                        32),
+        "w2vbert-mhfa": (e2e.W2VBERT_MHFA_SR, e2e.W2VBERT_MHFA_SAMPLES, e2e.init_w2vbert_mhfa,
+                         e2e.make_w2vbert_mhfa_scorer, 32),
     }[args.model]
     if args.sr != sr:
         print(f"score: --model {args.model} takes {sr} Hz audio, not --sr {args.sr}", file=sys.stderr)
@@ -882,15 +887,16 @@ def build_parser() -> argparse.ArgumentParser:
             "kernel: ct_mel at parity, wave_mel at speech)",
         )
 
-    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA) spoof scoring")
+    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA, w2v-BERT-MHFA) spoof scoring")
     sp.add_argument("audio", help="WAV/FLAC directory or glob")
     mel_flags(sp)
     sp.add_argument(
-        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa"), default="cnn-bilstm",
+        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa"), default="cnn-bilstm",
         help="cnn-bilstm: log-mel + CNN-BiLSTM, a spoof probability; "
         "xlsr-aasist: SSL-AASIST (XLS-R 300M + AASIST) on 64,600 raw "
         "samples; wavlm-mhfa: WavLM-Large + MHFA on 256,000 raw samples "
-        "(16 s); both repeat short clips and give the bona fide logit "
+        "(16 s); w2vbert-mhfa: w2v-BERT 2.0 + MHFA on the same 16 s; "
+        "the three repeat short clips and give the bona fide logit "
         "(--seconds and the mel flags do not apply)",
     )
     sp.add_argument(

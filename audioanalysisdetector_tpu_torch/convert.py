@@ -586,3 +586,55 @@ def wavlm_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
             if port is not None:
                 out[port] = t
     return out
+
+
+# huggingface.co/facebook/w2v-bert-2.0 (transformers' ``Wav2Vec2BertModel``):
+# (published prefix, port prefix), first match wins
+_W2VBERT_PREFIXES = (
+    ("feature_projection.layer_norm.", "feature_norm."),
+    ("feature_projection.projection.", "proj."),
+    ("encoder.layers.{i}.ffn1_layer_norm.", "layers.{i}.ffn1_norm."),
+    ("encoder.layers.{i}.ffn1.intermediate_dense.", "layers.{i}.ffn1.fc1."),
+    ("encoder.layers.{i}.ffn1.output_dense.", "layers.{i}.ffn1.fc2."),
+    ("encoder.layers.{i}.self_attn_layer_norm.", "layers.{i}.attn_norm."),
+    ("encoder.layers.{i}.self_attn.linear_q.", "layers.{i}.q."),
+    ("encoder.layers.{i}.self_attn.linear_k.", "layers.{i}.k."),
+    ("encoder.layers.{i}.self_attn.linear_v.", "layers.{i}.v."),
+    ("encoder.layers.{i}.self_attn.linear_out.", "layers.{i}.out."),
+    ("encoder.layers.{i}.self_attn.distance_embedding.", "layers.{i}.distance_embedding."),
+    ("encoder.layers.{i}.conv_module.layer_norm.", "layers.{i}.conv_module.norm."),
+    ("encoder.layers.{i}.conv_module.pointwise_conv1.", "layers.{i}.conv_module.pointwise1."),
+    ("encoder.layers.{i}.conv_module.depthwise_conv.", "layers.{i}.conv_module.depthwise."),
+    ("encoder.layers.{i}.conv_module.depthwise_layer_norm.", "layers.{i}.conv_module.depthwise_norm."),
+    ("encoder.layers.{i}.conv_module.pointwise_conv2.", "layers.{i}.conv_module.pointwise2."),
+    ("encoder.layers.{i}.ffn2_layer_norm.", "layers.{i}.ffn2_norm."),
+    ("encoder.layers.{i}.ffn2.intermediate_dense.", "layers.{i}.ffn2.fc1."),
+    ("encoder.layers.{i}.ffn2.output_dense.", "layers.{i}.ffn2.fc2."),
+    ("encoder.layers.{i}.final_layer_norm.", "layers.{i}.final_norm."),
+)
+
+
+def w2vbert_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The published w2v-BERT 2.0 state dict (huggingface.co/facebook/
+    w2v-bert-2.0 ``model.safetensors`` as a state dict; its keys under
+    ``wav2vec2_bert.`` when saved from a model with a head, whose own
+    tensors are not taken) -> ``models.w2v_bert.W2VBert``'s, for
+    ``W2VBertMHFA.w2vbert``.
+
+    The tensors map by ``_W2VBERT_PREFIXES``; the pointwise convs' weights
+    lose their kernel axis of 1 (bias-free Linears in the port);
+    ``masked_spec_embed`` (pre-training only) is dropped. A tensor of a
+    module the port does not build (an adapter, an intermediate FFN) raises
+    KeyError."""
+    prefix = "wav2vec2_bert."
+    if any(k.startswith(prefix) for k in state):
+        state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    out = {}
+    for name, t in state.items():
+        port = _port_name(name, _W2VBERT_PREFIXES, ("masked_spec_embed",), "")
+        if port is None:
+            continue
+        if ".pointwise" in port:
+            t = t.squeeze(-1)
+        out[port] = t
+    return out

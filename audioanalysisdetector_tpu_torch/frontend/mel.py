@@ -167,7 +167,8 @@ class MelConfig:
 @lru_cache(maxsize=None)
 def _filterbank_on(cfg: MelConfig, device: torch.device) -> torch.Tensor:
     """``cfg.filterbank()`` as f32, uploaded once per device."""
-    return torch.from_numpy(cfg.filterbank().astype(np.float32)).to(device)
+    with torch.inference_mode(False):  # cached: a normal tensor, usable where autograd records
+        return torch.from_numpy(cfg.filterbank().astype(np.float32)).to(device)
 
 
 def mel_route(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> str:

@@ -77,9 +77,10 @@ def _rdft_bases_on(
     n_fft: int, window: str, win_length: int, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_rdft_bases`` uploaded once per device (constants, never mutated)."""
-    return tuple(
-        torch.from_numpy(b).to(device) for b in _rdft_bases(n_fft, window, win_length)
-    )
+    with torch.inference_mode(False):  # cached: a normal tensor, usable where autograd records
+        return tuple(
+            torch.from_numpy(b).to(device) for b in _rdft_bases(n_fft, window, win_length)
+        )
 
 
 def center_pad(y: torch.Tensor, n_fft: int, pad_mode: str = "reflect") -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Models (PyTorch): the CNN-BiLSTM hybrid, the fused system's BiLSTM
 classifier, the diagonal GMM (scoring, EM, MAP), their LSTM layers, the
 anti-spoofing ResNet family, MobileNetV2 + MFCA, SSL-AASIST (the XLS-R
-front end and the AASIST graph-attention back end), and WavLM-Large with
-multi-head factorized attentive pooling (MHFA)."""
+front end and the AASIST graph-attention back end), and WavLM-Large and
+w2v-BERT 2.0 with multi-head factorized attentive pooling (MHFA)."""
 
 from audioanalysisdetector_tpu_torch.models.aasist import AASIST, SSLAASIST
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
@@ -23,7 +23,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 )
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.lstm import BiLSTM, LSTMLayer
-from audioanalysisdetector_tpu_torch.models.mhfa import MHFA, WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.mhfa import MHFA, SSLMHFA, W2VBertMHFA, WavLMMHFA
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import (
     MFCAModule,
     MobileNetMFCA,
@@ -36,6 +36,7 @@ from audioanalysisdetector_tpu_torch.models.resnet import (
     ResidualBlock,
     ResNetTrunk,
 )
+from audioanalysisdetector_tpu_torch.models.w2v_bert import W2V_BERT_2, ConformerLayer, W2VBert, W2VBertConfig
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE, XLSR, WavLM, WavLMConfig, XLSRConfig
 
 __all__ = [
@@ -44,6 +45,7 @@ __all__ = [
     "BiLSTM",
     "BiLSTMClassifier",
     "CNNBiLSTMHybrid",
+    "ConformerLayer",
     "DiagGMM",
     "ExtractFeatureResidual",
     "LSTMLayer",
@@ -55,6 +57,11 @@ __all__ = [
     "ResNetTrunk",
     "ResidualBlock",
     "SSLAASIST",
+    "SSLMHFA",
+    "W2VBert",
+    "W2VBertConfig",
+    "W2VBertMHFA",
+    "W2V_BERT_2",
     "WAVLM_LARGE",
     "WavLM",
     "WavLMConfig",

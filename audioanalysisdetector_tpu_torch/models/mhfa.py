@@ -1,4 +1,5 @@
-"""Multi-head factorized attentive pooling (MHFA) over WavLM's hidden states.
+"""Multi-head factorized attentive pooling (MHFA) over the hidden states of
+a self-supervised front end.
 
 MHFA (Peng et al., SLT 2022, arXiv:2210.01273;
 github.com/JunyiPeng00/SLT22_MultiHead-Factorized-Attentive-Pooling) reads
@@ -14,9 +15,11 @@ every hidden state ``s_0 .. s_L`` of a self-supervised front end:
 - ``pooling_fc`` (64 x 128 -> 256) and an output layer (256 -> 2), whose
   second logit is the bona fide score.
 
-``WavLMMHFA`` is WavLM-Large (``models/wav2vec2.py::WavLM``) with MHFA over
-its 25 hidden states. The sizes 64 / 128 / 256 and the two-way output layer
-are the published code's defaults carried to this task; the pairing is this
+``SSLMHFA`` is a front end with MHFA over its ``layers + 1`` hidden states:
+``WavLMMHFA`` over WavLM-Large (``models/wav2vec2.py::WavLM``),
+``W2VBertMHFA`` over w2v-BERT 2.0 (``models/w2v_bert.py::W2VBert``), 25
+states each. The sizes 64 / 128 / 256 and the two-way output layer are the
+published code's defaults carried to this task; the pairings are this
 port's.
 """
 
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from audioanalysisdetector_tpu_torch.models.w2v_bert import W2V_BERT_2, W2VBert, W2VBertConfig
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE, WavLM, WavLMConfig
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
@@ -53,13 +57,42 @@ class MHFA(nn.Module):
         return self.out_layer(self.pooling_fc(pooled))
 
 
-class WavLMMHFA(nn.Module):
-    """``(B, n)`` waveforms -> ``(B, 2)`` logits: WavLM, then MHFA."""
+class SSLMHFA(nn.Module):
+    """``(B, n)`` waveforms -> ``(B, 2)`` logits: a front end (anything with
+    a ``cfg`` of ``hidden`` and ``layers``, ``features(wav)`` and
+    ``hidden_states(x)``), then MHFA. The front end sits under the
+    attribute ``front_end_name``, so each model keeps its state-dict keys."""
 
-    def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, heads: int = 64, compression: int = 128, outputs: int = 256):
+    front_end_name = "front_end"
+
+    def __init__(self, front_end: nn.Module, heads: int, compression: int, outputs: int):
         super().__init__()
-        self.wavlm = WavLM(cfg)
-        self.mhfa = MHFA(cfg.hidden, cfg.layers + 1, heads, compression, outputs)
+        setattr(self, self.front_end_name, front_end)
+        self.mhfa = MHFA(front_end.cfg.hidden, front_end.cfg.layers + 1, heads, compression, outputs)
+
+    @property
+    def front_end(self) -> nn.Module:
+        return getattr(self, self.front_end_name)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        return self.mhfa(self.wavlm.hidden_states(self.wavlm.features(wav)))
+        front = self.front_end
+        return self.mhfa(front.hidden_states(front.features(wav)))
+
+
+class WavLMMHFA(SSLMHFA):
+    """WavLM-Large, then MHFA (``wavlm.*``, ``mhfa.*``)."""
+
+    front_end_name = "wavlm"
+
+    def __init__(self, cfg: WavLMConfig = WAVLM_LARGE, heads: int = 64, compression: int = 128, outputs: int = 256):
+        super().__init__(WavLM(cfg), heads, compression, outputs)
+
+
+class W2VBertMHFA(SSLMHFA):
+    """w2v-BERT 2.0, then MHFA (``w2vbert.*``, ``mhfa.*``)."""
+
+    front_end_name = "w2vbert"
+
+    def __init__(self, cfg: W2VBertConfig = W2V_BERT_2, heads: int = 64, compression: int = 128,
+                 outputs: int = 256):
+        super().__init__(W2VBert(cfg), heads, compression, outputs)

@@ -109,6 +109,22 @@ class ConvFeatureEncoder(nn.Module):
         return h
 
 
+def split_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """``(B, T, D)`` -> ``(B, heads, T, D / heads)``, a view."""
+    b, t, d = y.shape
+    return y.view(b, t, heads, d // heads).transpose(1, 2)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """The one attention call of the SSL front ends: ``softmax(q k^T /
+    sqrt(d) + mask) v`` over ``(B, H, T, d)`` heads (``mask`` a float
+    ``(B, H, T, T)`` added to the scaled logits, or None), merged back to
+    ``(B, T, H d)``. ``q`` is scaled by ``d ** -0.5`` as fairseq scales it."""
+    b, h, t, d = q.shape
+    a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return a.transpose(1, 2).reshape(b, t, h * d)
+
+
 class EncoderLayer(nn.Module):
     """One pre-LayerNorm transformer layer over ``(B, T, hidden)``."""
 
@@ -131,16 +147,10 @@ class EncoderLayer(nn.Module):
         return bias
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-        b, t, d = h.shape
         x = self.attn_norm(h)
         mask = self.attention_bias(x, bias)
-
-        def split(y: torch.Tensor) -> torch.Tensor:
-            return y.view(b, t, self.heads, d // self.heads).transpose(1, 2)
-
-        # scaled by head_dim ** -0.5, as fairseq scales q
-        a = F.scaled_dot_product_attention(split(self.q(x)), split(self.k(x)), split(self.v(x)), attn_mask=mask)
-        h = h + self.out(a.transpose(1, 2).reshape(b, t, d))
+        n = self.heads
+        h = h + self.out(attend(split_heads(self.q(x), n), split_heads(self.k(x), n), split_heads(self.v(x), n), mask))
         return h + self.fc2(F.gelu(self.fc1(self.ffn_norm(h))))
 
 

@@ -5,9 +5,9 @@ mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof probability, and the
 flagship CQCC -> GMM ⊕ BiLSTM fused scorer, with nothing on the host
 between the waveform upload and the ``(B,)`` scores. The port alone also
 scores with SSL-AASIST (``models/aasist.py``): 64,600 raw samples -> XLS-R
--> AASIST -> the bona fide logit; and with WavLM-Large + MHFA
-(``models/mhfa.py``): whole 16-s clips, 256,000 samples -> WavLM's 25
-hidden states -> MHFA -> the bona fide logit.
+-> AASIST -> the bona fide logit; and with WavLM-Large + MHFA or w2v-BERT
+2.0 + MHFA (``models/mhfa.py``): whole 16-s clips, 256,000 samples -> the
+front end's 25 hidden states -> MHFA -> the bona fide logit.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
 from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
-from audioanalysisdetector_tpu_torch.models.mhfa import WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.mhfa import SSLMHFA, W2VBertMHFA, WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.w2v_bert import W2VBert
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, WavLM
 from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
 from audioanalysisdetector_tpu_torch.utils.profiling import span
@@ -36,6 +37,9 @@ XLSR_AASIST_SAMPLES = 64600
 # clips within WavLM's relative-position horizon (800 frames)
 WAVLM_MHFA_SR = 16000
 WAVLM_MHFA_SAMPLES = 256000
+# w2v-BERT 2.0 + MHFA's input: the same 16.0-s clips (T = 799 feature rows)
+W2VBERT_MHFA_SR = 16000
+W2VBERT_MHFA_SAMPLES = 256000
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -304,12 +308,13 @@ def init_wavlm_mhfa(
     return model.to(device).eval()
 
 
-def make_wavlm_mhfa_scorer(model: WavLMMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``(B, 256000) -> (B,)`` bona fide logits (``logits[:, 1]``), on the
-    model's device, under ``torch.inference_mode()`` with TF32 off
-    (``ieee_fp32``). Spans: ``wavlm.features`` and ``wavlm.encoder`` (which
-    holds ``wavlm.position_bias`` once and ``wavlm.gated_bias`` once a
-    layer) inside ``score.frontend``, ``mhfa.pool`` inside ``score.model``."""
+def _make_mhfa_scorer(model: SSLMHFA, first: tuple[str, Callable], second: tuple[str, Callable]
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, n) -> (B,)`` bona fide logits (``logits[:, 1]``) of a front end
+    + MHFA, on the model's device, under ``torch.inference_mode()`` with
+    TF32 off (``ieee_fp32``): the front end in two named halves, ``first``
+    from the waveform and ``second`` to the hidden states, inside
+    ``score.frontend``; MHFA (``mhfa.pool``) inside ``score.model``."""
     ieee_fp32()
     model.eval()
 
@@ -317,14 +322,85 @@ def make_wavlm_mhfa_scorer(model: WavLMMHFA) -> Callable[[torch.Tensor], torch.T
     def score(wav: torch.Tensor) -> torch.Tensor:
         with span("score.call"):
             with span("score.frontend"):
-                with span("wavlm.features"):
-                    feats = model.wavlm.features(wav)
-                with span("wavlm.encoder"):
-                    states = model.wavlm.hidden_states(feats)
+                with span(first[0]):
+                    feats = first[1](wav)
+                with span(second[0]):
+                    states = second[1](feats)
             with span("score.model"):
                 return model.mhfa(states)[:, 1]
 
     return score
+
+
+def make_wavlm_mhfa_scorer(model: WavLMMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, 256000) -> (B,)`` bona fide logits (``_make_mhfa_scorer``).
+    Spans: ``wavlm.features`` and ``wavlm.encoder`` (which holds
+    ``wavlm.position_bias`` once and ``wavlm.gated_bias`` once a layer)
+    inside ``score.frontend``, ``mhfa.pool`` inside ``score.model``."""
+    return _make_mhfa_scorer(model, ("wavlm.features", model.wavlm.features),
+                             ("wavlm.encoder", model.wavlm.hidden_states))
+
+
+def _init_w2vbert(w2vbert: W2VBert, generator: torch.Generator) -> None:
+    """transformers' ``Wav2Vec2BertPreTrainedModel._init_weights`` past
+    torch's defaults, drawn from ``generator``: the layers' linear layers
+    N(0, 0.02) with zero biases, the convolution module's convs (the
+    pointwise ones Conv1d of kernel 1 there) Kaiming normal over their fan
+    in, the feature projection uniform in +-1/sqrt(160); norms weight 1,
+    bias 0; ``distance_embedding`` keeps torch's N(0, 1)."""
+    with torch.no_grad():
+        for layer in w2vbert.layers:
+            conv = layer.conv_module
+            for mod in layer.modules():
+                if isinstance(mod, torch.nn.Linear) and mod.bias is not None:
+                    mod.weight.normal_(0.0, 0.02, generator=generator)
+                    mod.bias.zero_()
+            for w in (conv.pointwise1.weight, conv.pointwise2.weight, conv.depthwise.weight):
+                w.normal_(0.0, (2.0 / w[0].numel()) ** 0.5, generator=generator)
+            layer.distance_embedding.weight.normal_(generator=generator)
+
+
+def init_w2vbert_mhfa(
+    *,
+    checkpoint: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> W2VBertMHFA:
+    """w2v-BERT 2.0 + MHFA at the published widths in eval mode on ``device``.
+
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` at the
+    published initialisation scales: transformers' for the front end
+    (``_init_w2vbert``), torch's defaults for MHFA's linear layers, MHFA's
+    layer weights zero (a uniform mix). With ``checkpoint``: the published
+    front end (huggingface.co/facebook/w2v-bert-2.0 ``model.safetensors``
+    saved as a ``torch.save`` state dict, converted by
+    ``convert.w2vbert_to_port``) replaces the front end and keeps the seeded
+    back end; a ``torch.save`` state dict of this model replaces every
+    tensor. Either must fit exactly."""
+    from audioanalysisdetector_tpu_torch.convert import w2vbert_to_port
+
+    model = W2VBertMHFA()
+    generator = torch.Generator().manual_seed(seed)
+    _init_uniform(model, generator)
+    _init_w2vbert(model.w2vbert, generator)
+    if checkpoint:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "w2vbert.proj.weight" in state:
+            model.load_state_dict(state)
+        else:
+            model.w2vbert.load_state_dict(w2vbert_to_port(state))
+    return model.to(device).eval()
+
+
+def make_w2vbert_mhfa_scorer(model: W2VBertMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, 256000) -> (B,)`` bona fide logits (``_make_mhfa_scorer``).
+    Spans: ``w2vbert.fbank`` (the Kaldi filterbank) and ``w2vbert.encoder``
+    (the projection and the 24 layers, holding ``w2vbert.rel_key`` and
+    ``w2vbert.conv_module`` once a layer) inside ``score.frontend``,
+    ``mhfa.pool`` inside ``score.model``."""
+    w2vbert = model.w2vbert
+    return _make_mhfa_scorer(model, ("w2vbert.fbank", w2vbert.fbank),
+                             ("w2vbert.encoder", lambda feats: w2vbert.hidden_states(w2vbert.project(feats))))
 
 
 def make_e2e_train_step_inputs(wav: torch.Tensor, cqcc_cfg: CQCCConfig) -> torch.Tensor:

@@ -22,7 +22,8 @@ and names the card's idle gaps by span path;
   completed in a window divide every per-call reading, and its device
   operations are the launches a call.
 - ``score.frontend``: the scorer's features (log-mel; CQCC, transpose and
-  scale; XLS-R; WavLM's 25 hidden states): the frontend's device ms a call.
+  scale; XLS-R; WavLM's or w2v-BERT's 25 hidden states): the frontend's
+  device ms a call.
 - ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``;
   AASIST; MHFA): the model's device ms a call.
 - ``xlsr.features``, ``xlsr.encoder``: SSL-AASIST's frontend in two
@@ -40,6 +41,20 @@ and names the card's idle gaps by span path;
   position bias (``models/wav2vec2.py::GatedEncoderLayer``), 24 a call
   inside ``wavlm.encoder``: the gated bias's device ms a call (planned
   ``span.wavlm_bias_ms.score``).
+- ``w2vbert.fbank``, ``w2vbert.encoder``: w2v-BERT-MHFA's frontend in two
+  (the Kaldi filterbank, ``frontend/fbank.py``; the projection and the 24
+  Conformer layers), inside ``score.frontend``: each half's device ms a
+  call.
+- ``w2vbert.rel_key``: one layer's relative-key mask, ``q E^T``, its
+  gather by the relative index and the scale
+  (``models/w2v_bert.py::ConformerLayer.relative_key``), 24 a call inside
+  ``w2vbert.encoder``: the mask's device ms a call (planned
+  ``span.w2vbert_relkey_ms.score``).
+- ``w2vbert.conv_module``: one layer's convolution module (pointwise, GLU,
+  causal depthwise conv, LayerNorm, swish, pointwise;
+  ``models/w2v_bert.py::ConvModule``), 24 a call inside
+  ``w2vbert.encoder``: the module's device ms a call (planned
+  ``span.w2vbert_conv_ms.score``).
 - ``mhfa.pool``: MHFA's layer mixes, compressions and attentive pooling
   (``models/mhfa.py``), inside ``score.model``: the pooling's device ms a
   call.

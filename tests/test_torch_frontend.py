@@ -122,3 +122,24 @@ def test_unknown_method_and_short_signal_raise():
         tstft.power_spectrogram(torch.zeros(1, 4096), method="block")
     with pytest.raises(ValueError, match="shorter than one"):
         tstft.frame_signal(torch.zeros(1, 100), n_fft=512, hop_length=128, center=False)
+
+
+@pytest.mark.parametrize("profile", ["parity", "speech"])
+def test_the_plain_mel_takes_grad_after_an_inference_call(profile):
+    """The mel chain's cached operators (``mel._filterbank_on``,
+    ``stft._rdft_bases_on``) are normal tensors even when an
+    ``inference_mode`` call built them, so a later grad-mode call in the
+    same process still gets its backward."""
+    tmel._filterbank_on.cache_clear()
+    tstft._rdft_bases_on.cache_clear()
+    cfg = tmel.MelConfig.for_profile(profile)
+    wav = torch.from_numpy((np.random.default_rng(6).standard_normal((2, 4000)) * 0.1).astype(np.float32))
+    with torch.inference_mode():
+        first = tmel.melspectrogram(wav, cfg)
+    x = wav.clone().requires_grad_()
+    again = tmel.melspectrogram(x, cfg)
+    again.sum().backward()
+    assert torch.equal(first, again.detach())
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().sum()) > 0
+    assert not tmel._filterbank_on(cfg, x.device).is_inference()
+    assert not any(b.is_inference() for b in tstft._rdft_bases_on(cfg.n_fft, cfg.window, cfg.win_length or cfg.n_fft, x.device))

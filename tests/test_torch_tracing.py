@@ -23,13 +23,15 @@ from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
-from audioanalysisdetector_tpu_torch.models.mhfa import WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.mhfa import W2VBertMHFA, WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.w2v_bert import W2V_BERT_2
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE
 from audioanalysisdetector_tpu_torch.ops.ct_mel import ct_mel_unpadded
 from audioanalysisdetector_tpu_torch.ops.wave_mel import wave_mel_unpadded
 from audioanalysisdetector_tpu_torch.score.e2e import (
     make_cqcc_fused_scorer,
     make_mel_cnn_bilstm_scorer,
+    make_w2vbert_mhfa_scorer,
     make_wavlm_mhfa_scorer,
 )
 from audioanalysisdetector_tpu_torch.serve.server import BatchingScorer, ScoreServer
@@ -92,11 +94,18 @@ def _wavlm_scorer():
     return make_wavlm_mhfa_scorer(WavLMMHFA(cfg, heads=4, compression=8, outputs=8))
 
 
+def _w2vbert_scorer():
+    torch.manual_seed(0)
+    cfg = dataclasses.replace(W2V_BERT_2, hidden=32, heads=2, ffn=64, layers=2)
+    return make_w2vbert_mhfa_scorer(W2VBertMHFA(cfg, heads=4, compression=8, outputs=8))
+
+
 @pytest.mark.parametrize(
     "make,inner,absent",
     [(_mel_scorer, [], ["lstm.last_only"]), (_fused_scorer, ["fused.gmm", "lstm.last_only"], []),
-     (_wavlm_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm"])],
-    ids=["mel", "fused", "wavlm"],
+     (_wavlm_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm"]),
+     (_w2vbert_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm", "wavlm.gated_bias"])],
+    ids=["mel", "fused", "wavlm", "w2vbert"],
 )
 def test_scorer_spans_nest(make, inner, absent):
     score = make()
