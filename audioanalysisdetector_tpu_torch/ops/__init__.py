@@ -10,8 +10,13 @@
 - ``cqcc``         K5: the CQCC of raw waveforms (CQT, dB, regrid, log,
   DCT) in one launch; ``frontend/cqcc.py::cqcc`` routes to it, and its
   plain chain is K5's plain version.
+- ``gmm_llr``      K6: the fused scorer's GMM arm (padding mask, both
+  GMMs' log-likelihoods, masked mean) in one launch;
+  ``score/fused.py::arm_scores`` routes to it, and its ``padding_mask`` +
+  ``masked_llr`` are K6's plain version.
 
-Each wrapper runs its plain version on a CPU tensor (``on_card`` is False)
+Each wrapper runs its plain version on a CPU tensor (``on_card`` is False;
+K5's and K6's routers keep such a tensor on their plain path themselves)
 and hands a CUDA tensor's operands to ``launch``, the one launch path: it
 refuses an input that needs a backward, calls the C entry point that
 ``_build.entry_point`` loaded on the current stream, and counts the launch
@@ -27,7 +32,7 @@ import threading
 
 import torch
 
-LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc")
+LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc", "gmm_llr")
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM, masked_llr
+from audioanalysisdetector_tpu_torch.ops import gmm_llr
 from audioanalysisdetector_tpu_torch.train import metrics as M
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
@@ -63,8 +64,15 @@ def arm_scores(
 
     ``gmm_feature_fn`` optionally transforms the GMM arm's frames; the
     padding mask comes from the RAW x and the BiLSTM sees the raw features.
+    On the card the GMM arm (mask, both GMMs, masked mean) is one launch of
+    K6 where ``ops/gmm_llr.py::refusals`` names no reason; everywhere else
+    it is ``padding_mask`` and ``masked_llr``, K6's plain version.
     """
     bilstm_prob = torch.softmax(model(x), dim=-1)[:, 1]
+    if gmm_llr.takes(x, gmm_genuine, gmm_spoof, gmm_feature_fn):
+        with span("fused.gmm"):
+            llr_spoof, empty = gmm_llr.gmm_llr(x, gmm_spoof, gmm_genuine)
+        return bilstm_prob, llr_spoof, empty
     mask = padding_mask(x)
     gx = gmm_feature_fn(x) if gmm_feature_fn is not None else x
     with span("fused.gmm"):

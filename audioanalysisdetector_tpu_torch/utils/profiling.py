@@ -65,8 +65,12 @@ and names the card's idle gaps by span path;
   K3 where it is given padded rows (``ops/ct_mel.py``: a CPU tensor, or a
   pad mode other than reflect; on the card K3 folds the reflect pad into
   its frame addressing and opens none): the pad's device ms a call.
-- ``fused.gmm``: the GMM arm's masked LLR (``score/fused.py``): the GMMs'
-  device ms a call.
+- ``fused.gmm``: the GMM arm's masked LLR (``score/fused.py``; on the card
+  K6, elsewhere ``masked_llr``): the GMMs' device ms a call.
+- ``gmm.kernel``: one launch of K6, the GMM arm (``ops/gmm_llr.py``, routed
+  by ``score/fused.py::arm_scores``): one a fused scorer call on the card
+  inside ``fused.gmm``, none on the CPU, with a ``gmm_feature_fn`` or where
+  a backward is asked: the arm's device ms a call.
 - ``lstm.last_only``: ``models/lstm.py::BiLSTM`` computing position T-1
   alone (the forward scan and one backward cell step): the second BiLSTM of
   ``BiLSTMClassifier``, one a fused scorer call inside ``score.model``, none

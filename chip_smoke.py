@@ -13,8 +13,8 @@ each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
-   ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` (K4) and
-   ``ops/csrc/cqcc.cu`` (K5) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+   ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` (K4),
+   ``ops/csrc/cqcc.cu`` (K5) and ``ops/csrc/gmm_llr.cu`` (K6) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
    (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
@@ -50,6 +50,14 @@ each print their lines:
    silence, 1 s, 512 and 32,704 samples, a 3-D batch), frames whose
    regridded dB lies within 1e-3 of 0 left out; the kernel and plain times
    in turns beside the bound at B=8192; refused inputs keep the plain chain;
+5d. K6: ``gmm_llr`` (the fused scorer's GMM arm in one launch) against
+   the plain arm (``padding_mask`` + ``masked_llr``) on the card in fp32
+   and in float64, at the fused cell's shapes (B=8192, T=63, D=19, two
+   128-component GMMs, padded tails and empty rows) and at T=150 with K =
+   13 and 256, D = 32 and D = 1: one launch each, the same bits twice, the
+   empty rows alike; the arm's device work K6 alone; the kernel and plain
+   times in turns beside the bound at B=8192; refused inputs (a frame
+   transform, grad) keep the plain arm;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -64,12 +72,13 @@ each print their lines:
    128-component GMMs, 84-bin CQT, 19 CQCCs) on B=8192 two-second
    utterances: ms per batch, utt/s, K4's launches a call (2: its BiLSTMs'
    recurrences), K5's (1: the frontend, whose device work is K5 alone, no
-   CQT SGEMM) and a ``torch.profiler`` breakdown, 256 rows against the
+   CQT SGEMM), K6's (1: the GMM arm) and a ``torch.profiler`` breakdown, 256 rows against the
    port on the CPU; the same features through
    ``make_fused_scorer`` with the deltas + CMVN frame transform (D = 57
    GMMs); ``eval_model`` over a model dir written with ``to_numpy``, on the
    card and on the CPU. The path reaches no TPU kernel (XLA computed it in
-   the JAX package): K5 for the CQCC, K4 for the recurrences, cuBLAS;
+   the JAX package): K5 for the CQCC, K4 for the recurrences, K6 for the
+   GMMs, cuBLAS;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -254,6 +263,7 @@ from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_lau
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
 from audioanalysisdetector_tpu_torch.ops import cqcc as k5
+from audioanalysisdetector_tpu_torch.ops import gmm_llr as k6
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
@@ -263,7 +273,7 @@ from audioanalysisdetector_tpu_torch.score.e2e import (
     make_cqcc_fused_scorer,
     make_mel_cnn_bilstm_scorer,
 )
-from audioanalysisdetector_tpu_torch.score.fused import make_fused_scorer
+from audioanalysisdetector_tpu_torch.score.fused import arm_scores, make_fused_scorer, padding_mask
 from audioanalysisdetector_tpu_torch.train import (
     TrainState,
     bilstm_pipeline,
@@ -384,6 +394,7 @@ KERNEL_SOURCES = {
     "ct_mel": ("ops/csrc/ct_mel.cu", "audioanalysisdetector_tpu/ops/ct_mel.py:154"),
     "lstm_scan": ("ops/csrc/lstm_scan.cu", "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under nn.LSTM"),
     "cqcc": ("ops/csrc/cqcc.cu", "no TPU kernel: the plain CQT -> CQCC chain's SGEMMs, cat and elementwise passes"),
+    "gmm_llr": ("ops/csrc/gmm_llr.cu", "no TPU kernel: the plain GMM arm's SGEMMs, elementwise and reduction passes"),
 }
 # K4 against its plain version, both fp32 on the card: the same steps, the
 # h W_hh^T sums taken in other orders over 63 steps (an H100 read 1.8e-7)
@@ -400,6 +411,14 @@ LSTM_CUDNN_TOL = 5e-5
 # (K5 4.4e-4 and the plain chain 8.0e-4 from the plain chain in float64)
 K5_TOL = 5e-3
 K5_MIN_ABS_INTERP_DB = 1e-3
+# K6 against the plain arm (padding_mask + masked_llr), both fp32, and
+# against the plain arm in float64, on the per-utterance LLR (|LLR| of a few
+# units): each frame's log-likelihoods (~-30) carry ~1e-6 of rounding from
+# the quadratic expansion's terms (the kernel's tables rounded to float32,
+# the plain path's two SGEMMs of K = 19), the mean over the frames less; the
+# benchmark's score_gap limit of 5e-5 allows ~4e-4 of LLR (sigmoid slope
+# 1/4, weight 1/2)
+K6_TOL = 1e-4
 
 
 def log(phase: str, **kv) -> None:
@@ -607,7 +626,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel", "lstm_scan", "cqcc")
+    libs = ("wave_mel", "ct_mel", "lstm_scan", "cqcc", "gmm_llr")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -1005,6 +1024,107 @@ def phase_k5() -> dict:
     return out
 
 
+def gmm_bound(batch: int) -> dict:
+    """The least time the card could take for the fused scorer's GMM arm
+    over ``batch`` 2-s utterances (``ops/csrc/gmm_llr.cu``'s bound,
+    ``portbench/metrics/k6_roofline.py``'s): the larger of the yardstick's
+    operations (``gmm_pair_ops``) at FP32_FLOP_PER_S and the bytes, the
+    (63, 19) coefficients read once and each utterance's LLR and empty flag
+    written once, at HBM_BYTES_PER_S."""
+    bench_cfg = json.loads((ROOT / "portbench" / "configs" / "cqcc-fused.json").read_text())
+    ops = batch * gmm_pair_ops(bench_cfg)
+    bytes_ = batch * (4 * (1 + N_SAMPLES // 512) * bench_cfg["n_ceps"] + 4 + 1)
+    ops_ms, bytes_ms = ops / FP32_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def plain_arm(x: torch.Tensor, spoof, genuine) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's plain version, ``arm_scores``' GMM arm: (llr_spoof, empty)."""
+    mask = padding_mask(x)
+    return masked_llr(x, mask, spoof, genuine), mask.sum(-1) == 0
+
+
+def gmm_frames(batch: int, t: int, d: int, seed: int) -> torch.Tensor:
+    """Standard normal frames on the card with the fused scorer's padding:
+    every 7th row cut to a seeded length in [1, t) (zeros after it), every
+    97th row all zeros."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((batch, t, d), generator=g, device=DEVICE)
+    lengths = torch.full((batch,), t, device=DEVICE)
+    lengths[::7] = torch.randint(1, t, (len(lengths[::7]),), generator=g, device=DEVICE)
+    lengths[::97] = 0
+    return x * (torch.arange(t, device=DEVICE)[None, :] < lengths[:, None])[..., None]
+
+
+def phase_k6() -> dict:
+    """K6 vs the plain arm (``padding_mask`` + ``masked_llr``) on the card in
+    fp32 and in float64: the fused cell's shapes (B=8192, T=63, D=19, two
+    128-component GMMs) with padded tails and empty rows, then T=150 (three
+    passes) with K = 13 and 256, D = 32 and D = 1, each one launch, the
+    same bits twice; the kernel's device work alone, and the kernel and
+    plain times in turns beside the bound at B=8192; inputs it refuses keep
+    the plain arm."""
+    model, g, s = fused_models(DEVICE)
+    cases = (("fused", BATCH, 63, 19, 128, 128), ("t150_k13_k256", 512, 150, 19, 13, 256),
+             ("d32", 512, 70, 32, 64, 64), ("d1", 512, 63, 1, 8, 9))
+    dbl = lambda m: type(m)(*(p.double() for p in (m.weights, m.means, m.variances)))  # noqa: E731
+    worst = 0.0
+    for name, batch, t, d, ks, kg in cases:
+        if name == "fused":
+            spoof, genuine = s, g
+        else:
+            spoof = from_numpy(random_diag_gmm(3, ks, d), device=DEVICE)
+            genuine = from_numpy(random_diag_gmm(4, kg, d), device=DEVICE)
+        x = gmm_frames(batch, t, d, seed=batch + t + d)
+        with torch.inference_mode():
+            (llr, empty), counts = run_counted(lambda: k6.gmm_llr(x, spoof, genuine))
+            again, _ = k6.gmm_llr(x, spoof, genuine)
+            ref, ref_empty = plain_arm(x, spoof, genuine)
+            ref64, _ = plain_arm(x.double(), dbl(spoof), dbl(genuine))
+        err = float((llr - ref).abs().max())
+        k64, p64 = (float((a.double() - ref64).abs().max()) for a in (llr, ref))
+        worst = max(worst, err, k64)
+        same_empty = bool(torch.equal(empty, ref_empty))
+        log("k6", case=name, shape=f"{batch}x{t}x{d}", components=f"{ks},{kg}", launches=counts["gmm_llr"],
+            max_abs_err=f"{err:.3e}", kernel_vs_f64=f"{k64:.3e}", plain_vs_f64=f"{p64:.3e}",
+            empty_rows=int(empty.sum()), same_empty=same_empty, empty_llr_zero=bool((llr[empty] == 0).all()),
+            same_bits_twice=bool(torch.equal(llr, again)), llr_range=f"{float(ref.min()):.3f}..{float(ref.max()):.3f}")
+        if (counts["gmm_llr"] != 1 or err > K6_TOL or k64 > K6_TOL or not same_empty or not int(empty.sum())
+                or not bool((llr[empty] == 0).all()) or not torch.equal(llr, again)):
+            raise AssertionError(f"K6 {name}: {counts}, {err:.3e} from the plain arm, {k64:.3e} from float64 "
+                                 f"(> {K6_TOL}?), empty rows alike {same_empty}")
+        del x, llr, empty, again, ref, ref_empty, ref64
+    x = gmm_frames(BATCH, 63, 19, seed=11)
+    with torch.inference_mode():
+        kern = lambda: k6.gmm_llr(x, s, g)  # noqa: E731
+        plain = lambda: plain_arm(x, s, g)  # noqa: E731
+        _, kern_ms, ranked = device_breakdown(kern, iters=3)
+        names = [name for _, _, name in ranked]
+        log("k6", device_kernels=json.dumps(names), device_ms=f"{kern_ms:.3f}")
+        if len(names) != 1 or "gmm_llr_kernel" not in names[0]:  # no SGEMM, elementwise or reduce pass left
+            raise AssertionError(f"K6: the arm ran {names}, not K6 alone")
+        t = in_turns(kern, plain, iters=20)
+        peak = extra_bytes(kern), extra_bytes(plain)
+    bound = gmm_bound(BATCH)
+    log("k6", batch=BATCH, frames=63, dim=19, components=128, kernel_ms=f"{t['ms']:.4f}",
+        plain_ms=f"{t['plain_ms']:.3f}", kernel_runs="%.4f,%.4f" % t["runs"],
+        plain_runs="%.3f,%.3f" % t["plain_runs"],
+        kernel_tflops=f"{bound['ops_ms'] * FP32_FLOP_PER_S / 1e3 / t['ms'] / 1e9:.2f}",
+        extra_bytes_kernel=peak[0], extra_bytes_plain=peak[1], **bound_fields(t, bound))
+    # refused inputs keep the plain arm: a frame transform, grad on the frames
+    feats = gmm_frames(64, 63, 19, seed=12)
+    for why, fn in (("feature_fn", lambda: arm_scores(model, g, s, feats, gmm_feature_fn=torch.neg)),
+                    ("grad", lambda: arm_scores(model, g, s, feats.clone().requires_grad_(True)))):
+        _, counts = run_counted(fn)
+        if counts["gmm_llr"]:
+            raise AssertionError(f"K6 launched on an input refused for {why}")
+        log("k6", refused=why, launches=counts["gmm_llr"])
+    del x, feats
+    free()
+    return {**t, **bound, "max_abs_err": worst}
+
+
 def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     """Independent float64 mel power: numpy rfft of reflect-padded frames."""
     pad = cfg.n_fft // 2
@@ -1245,6 +1365,8 @@ def phase_fused() -> dict:
         raise AssertionError(f"fused: {counts['lstm_scan']} K4 launches a call, not 2")
     if counts["cqcc"] != 1:  # the frontend: K5, raw waveform to CQCC
         raise AssertionError(f"fused: {counts['cqcc']} K5 launches a call, not 1")
+    if expect_launched(counts, "gmm_llr", "fused") != 1:  # the GMM arm: K6, mask to masked mean
+        raise AssertionError(f"fused: {counts['gmm_llr']} K6 launches a call, not 1")
     with torch.inference_mode():
         _, front_ms, front = device_breakdown(lambda: cqcc(wav, cfg), iters=3)
     front_names = [name for _, _, name in front]
@@ -1265,7 +1387,7 @@ def phase_fused() -> dict:
         tflops=f"{sum(flop.values()) / ms / 1e9:.2f}")
     log("fused", batch=BATCH, cqcc=f"{cfg.cqt.n_bins}bins/hop{cfg.cqt.hop_length}/{cfg.n_ceps}ceps",
         gmm_components=g.n_components, bilstm_hidden=128, lstm_scan_launches_per_call=counts["lstm_scan"],
-        cqcc_launches_per_call=counts["cqcc"],
+        cqcc_launches_per_call=counts["cqcc"], gmm_llr_launches_per_call=counts["gmm_llr"],
         kernel_launches=json.dumps(counts, separators=(",", ":")),
         diff_vs_cpu_256=f"{diff:.3e}", score_range=f"{float(scores.min()):.4f}..{float(scores.max()):.4f}",
         ms=f"{ms:.3f}", utt_per_s=f"{BATCH / ms * 1e3:.1f}")
@@ -1311,7 +1433,7 @@ def phase_fused() -> dict:
     del wav, feats, scores, scores57
     free()
     return {"ms": ms, "utt_per_s": BATCH / ms * 1e3, "diff_vs_cpu": diff, "lstm_scan": counts["lstm_scan"],
-            "cqcc": counts["cqcc"]}
+            "cqcc": counts["cqcc"], "gmm_llr": counts["gmm_llr"]}
 
 
 def train_corpus(n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -3062,13 +3184,16 @@ def main() -> int:
     k2 = timed_phase(phase_k2)
     k4_timed = timed_phase(phase_k4)
     k5_timed = timed_phase(phase_k5)
-    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0, "cqcc": 0}
+    k6_timed = timed_phase(phase_k6)
+    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0, "cqcc": 0,
+                "gmm_llr": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
     fused = timed_phase(phase_fused)
     launches["lstm_scan"] += fused["lstm_scan"]
     launches["cqcc"] += fused["cqcc"]
+    launches["gmm_llr"] += fused["gmm_llr"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
@@ -3081,6 +3206,7 @@ def main() -> int:
         "ct_mel": k3,
         "lstm_scan": k4_timed,
         "cqcc": k5_timed,
+        "gmm_llr": k6_timed,
     }
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -42,7 +42,9 @@ def _zeros() -> dict[str, int]:
 
 
 def test_the_ledger_keeps_every_counter_in_order():
-    assert ops.LAUNCH_COUNTERS == ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc")
+    assert ops.LAUNCH_COUNTERS == (
+        "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc", "gmm_llr"
+    )
     assert tuple(ops.launch_counts()) == ops.LAUNCH_COUNTERS
     counts = ops.launch_counts()
     counts["ct_mel"] += 1  # a copy: the ledger is unchanged
@@ -77,7 +79,7 @@ def test_launch_appends_the_stream_and_counts_each_named_counter_once(fake_card)
     assert ops.launch_counts() == {**_zeros(), "ct_mel": 1, "ct_mel.reflect": 1, "wave_mel": 1}
 
 
-@pytest.mark.parametrize("kernel", ["lstm_scan", "cqcc"])
+@pytest.mark.parametrize("kernel", ["lstm_scan", "cqcc", "gmm_llr"])
 def test_each_kernel_counts_on_its_own_counter(fake_card, kernel):
     entry = FakeEntry()
     ops.launch(entry, torch.zeros(4), kernel, 5, rows=4)
