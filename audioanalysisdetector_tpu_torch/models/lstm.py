@@ -117,27 +117,28 @@ class BiLSTM(nn.Module):
         last_only: bool = False,
     ) -> torch.Tensor:
         """Full output ``(B, T, 2H)``; with ``last_only`` (fixed-length
-        batches only) just position T-1, ``(B, 2H)``."""
+        batches only) just position T-1, ``(B, 2H)``. Every route runs
+        under the ``lstm.layer`` span."""
         if last_only and lengths is not None:
             raise ValueError(_LAST_ONLY_RAGGED)
-        if last_only:
-            with span("lstm.last_only"):
+        with span("lstm.layer"):
+            if last_only:
                 return self._last(x)
-        if k4.takes(x, self.lstm, lengths):
-            return self._scan(x)
-        out, _ = self.lstm(x)
-        if lengths is None:
-            return out
-        # backward half over each row's true sequence: a packed run reverses
-        # within each length and leaves zeros past it (_reverse_padded's rule)
-        packed = pack_padded_sequence(
-            x, lengths.to("cpu", torch.int64), batch_first=True, enforce_sorted=False
-        )
-        ragged, _ = pad_packed_sequence(
-            self.lstm(packed)[0], batch_first=True, total_length=x.shape[1]
-        )
-        H = self.hidden
-        return torch.cat([out[..., :H], ragged[..., H:]], dim=-1)
+            if k4.takes(x, self.lstm, lengths):
+                return self._scan(x)
+            out, _ = self.lstm(x)
+            if lengths is None:
+                return out
+            # backward half over each row's true sequence: a packed run reverses
+            # within each length and leaves zeros past it (_reverse_padded's rule)
+            packed = pack_padded_sequence(
+                x, lengths.to("cpu", torch.int64), batch_first=True, enforce_sorted=False
+            )
+            ragged, _ = pad_packed_sequence(
+                self.lstm(packed)[0], batch_first=True, total_length=x.shape[1]
+            )
+            H = self.hidden
+            return torch.cat([out[..., :H], ragged[..., H:]], dim=-1)
 
     def _scan(self, x: torch.Tensor, *, last_only: bool = False) -> torch.Tensor:
         """K4's route: both directions' full output ``(B, T, 2H)`` in one

@@ -119,10 +119,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
     """The one attention call of the SSL front ends: ``softmax(q k^T /
     sqrt(d) + mask) v`` over ``(B, H, T, d)`` heads (``mask`` a float
     ``(B, H, T, T)`` added to the scaled logits, or None), merged back to
-    ``(B, T, H d)``. ``q`` is scaled by ``d ** -0.5`` as fairseq scales it."""
+    ``(B, T, H d)``, under the ``ssl.attend`` span. ``q`` is scaled by
+    ``d ** -0.5`` as fairseq scales it."""
     b, h, t, d = q.shape
-    a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    return a.transpose(1, 2).reshape(b, t, h * d)
+    with span("ssl.attend"):
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return a.transpose(1, 2).reshape(b, t, h * d)
 
 
 class EncoderLayer(nn.Module):

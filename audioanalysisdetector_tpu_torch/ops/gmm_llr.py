@@ -12,9 +12,10 @@ in shared memory in each block's prologue from the raw weights, means and
 variances, so nothing is cached between calls. Design and bound: the note
 in ``ops/csrc/gmm_llr.cu``.
 
-``gmm_llr`` launches the kernel on a CUDA tensor, under the ``gmm.kernel``
-span, counted as ``gmm_llr``. There is no fallback: a failed build or a
-refused launch raises. The plain version is ``arm_scores``' own path,
+``gmm_llr`` launches the kernel on a CUDA tensor, counted as ``gmm_llr``
+(its caller's ``fused.gmm`` span covers the launch). There is no
+fallback: a failed build or a refused launch raises. The plain version is
+``arm_scores``' own path,
 ``masked_llr(x, padding_mask(x), spoof, genuine)``: on an input
 ``refusals`` names a reason for, ``arm_scores`` runs it.
 """
@@ -28,7 +29,6 @@ import torch
 
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
 from audioanalysisdetector_tpu_torch.ops import _build, launch, on_card, refuse_grad
-from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 # the shared-memory plan: both GMMs' tables, 2 K (2 D + 1) floats with D and
 # K padded, take at most 133 KB at these bounds (ops/csrc/gmm_llr.cu)
@@ -112,11 +112,10 @@ def gmm_llr(x: torch.Tensor, gmm_spoof: DiagGMM, gmm_genuine: DiagGMM) -> tuple[
     if not B:
         return llr, empty
     w0, mu0, var0, w1, mu1, var1 = (p.data_ptr() for p in params)
-    with span("gmm.kernel"):
-        launch(
-            _build.entry_point("gmm_llr", "gmm_llr_launch", _ARGTYPES), x, "gmm_llr",
-            x.data_ptr(), B, T, D, w0, mu0, var0, gmm_spoof.n_components,
-            w1, mu1, var1, gmm_genuine.n_components, llr.data_ptr(), empty.data_ptr(),
-            rows=B,
-        )
+    launch(
+        _build.entry_point("gmm_llr", "gmm_llr_launch", _ARGTYPES), x, "gmm_llr",
+        x.data_ptr(), B, T, D, w0, mu0, var0, gmm_spoof.n_components,
+        w1, mu1, var1, gmm_genuine.n_components, llr.data_ptr(), empty.data_ptr(),
+        rows=B,
+    )
     return llr, empty

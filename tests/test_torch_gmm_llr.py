@@ -305,7 +305,7 @@ def test_launch_hands_the_kernel_its_operands_and_counts_once(fake_card, b, t, k
     )
     assert bool((llr == 0.25).all()) and not bool(empty.any())
     assert ops.launch_counts() == {**dict.fromkeys(ops.LAUNCH_COUNTERS, 0), "gmm_llr": 1}
-    assert [sp[0] for sp in _user_spans(prof)].count("gmm.kernel") == 1
+    assert _user_spans(prof) == []  # the launch opens no span: its caller's fused.gmm covers it
 
 
 def test_launch_copies_strided_operands(fake_card):
@@ -344,7 +344,7 @@ def test_the_cpu_wrapper_raises():
         k6.gmm_llr(torch.zeros(2, 63, 19), _gmm(8, 19, 1), _gmm(8, 19, 2))
 
 
-def test_the_fused_scorer_reaches_the_kernel_inside_its_gmm_span(fake_card):
+def test_the_fused_scorer_reaches_the_kernel_inside_its_gmm_span(fake_card, monkeypatch):
     """Where ``takes`` holds, the GMM arm is one launch inside ``fused.gmm``
     inside ``score.model``; its ``llr`` and ``empty`` are the arm's. With a
     ``gmm_feature_fn`` the arm takes the plain path and launches nothing."""
@@ -353,6 +353,12 @@ def test_the_fused_scorer_reaches_the_kernel_inside_its_gmm_span(fake_card):
     spoof, genuine = _gmm(16, 19, 1), _gmm(16, 19, 2)
     x = _frames(3, 63, 19, seed=8)
     fake_card.empty = True
+
+    def marked(*args):  # a range around each launch, to place it among the spans
+        with torch.profiler.record_function("test.launch"):
+            return fake_card(*args)
+
+    monkeypatch.setattr(k6._build, "entry_point", lambda *args: marked)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _, llr, empty = make_arm_scorer(model, genuine, spoof)(x)
         scores = make_fused_scorer(model, genuine, spoof)(x)
@@ -361,9 +367,9 @@ def test_the_fused_scorer_reaches_the_kernel_inside_its_gmm_span(fake_card):
     assert len(fake_card.calls) == 2 and ops.launch_counts()["gmm_llr"] == 2
     spans = _user_spans(prof)
     arms = [sp for sp in spans if sp[0] == "fused.gmm"]
-    kernels = [sp for sp in spans if sp[0] == "gmm.kernel"]
-    assert len(arms) == len(kernels) == 2
-    assert all(any(a[1] <= k[1] and k[2] <= a[2] for a in arms) for k in kernels)
+    launches = [sp for sp in spans if sp[0] == "test.launch"]
+    assert len(arms) == len(launches) == 2 and "gmm.kernel" not in [sp[0] for sp in spans]
+    assert all(sum(a[1] <= k[1] and k[2] <= a[2] for k in launches) == 1 for a in arms)  # one launch each
 
     with torch.inference_mode():
         _, llr, _ = arm_scores(model, genuine, spoof, x, gmm_feature_fn=torch.neg)

@@ -1,15 +1,19 @@
 """The port's spans and serving counters, on the CPU.
 
-``utils.profiling.span`` is a ``record_function`` range while a profiler
-records and the one shared no-op context otherwise. The scorers, the mel
-pad, the serving batcher and ``fit`` open their spans where the work
-happens; ``ServeStats`` sums queue wait, dispatch and parse time on the host
-clock and ``GET /v1/stats`` returns them.
+``utils.profiling.span`` is a ``record_function`` range with a reading
+while a profiler records and the one shared no-op context otherwise; here,
+where CUDA is not initialized, a reading is the host clock's, summed by name
+in ``span_readings()``. The scorers, the mel pad, the serving batcher and
+``fit`` open their spans where the work happens; ``ServeStats`` sums queue
+wait, dispatch and parse time on the host clock and ``GET /v1/stats``
+returns them.
 """
 
 import dataclasses
 import json
+import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -20,12 +24,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from audioanalysisdetector_tpu_torch.frontend.cqcc import CQCCConfig
 from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.bilstm_classifier import BiLSTMClassifier
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
 from audioanalysisdetector_tpu_torch.models.mhfa import W2VBertMHFA, WavLMMHFA
 from audioanalysisdetector_tpu_torch.models.w2v_bert import W2V_BERT_2
-from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE
+from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE, XLSRConfig
 from audioanalysisdetector_tpu_torch.ops.ct_mel import ct_mel_unpadded
 from audioanalysisdetector_tpu_torch.ops.wave_mel import wave_mel_unpadded
 from audioanalysisdetector_tpu_torch.score.e2e import (
@@ -33,12 +38,14 @@ from audioanalysisdetector_tpu_torch.score.e2e import (
     make_mel_cnn_bilstm_scorer,
     make_w2vbert_mhfa_scorer,
     make_wavlm_mhfa_scorer,
+    make_xlsr_aasist_scorer,
 )
 from audioanalysisdetector_tpu_torch.serve.server import BatchingScorer, ScoreServer
 from audioanalysisdetector_tpu_torch.train import loop
 from audioanalysisdetector_tpu_torch.train.optimizers import make_optimizer
 from audioanalysisdetector_tpu_torch.train.state import TrainState
 from audioanalysisdetector_tpu_torch.utils import device_trace, span
+from audioanalysisdetector_tpu_torch.utils.profiling import reset_span_readings, span_readings
 
 torch.set_num_threads(2)
 N = 160  # samples a row in the serving tests
@@ -87,6 +94,76 @@ def test_span_off_is_the_shared_noop():
     assert [s[0] for s in _spans(prof)] == ["on.span"]
 
 
+def test_readings_only_while_a_profiler_records():
+    reset_span_readings()
+    with span("off.span"):
+        torch.randn(8) + 1
+    assert span("off.span") is span("another.span")  # the shared no-op, no reading
+    assert span_readings() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("on.span"):
+            torch.randn(8) + 1
+    with span("on.span"):  # the profiler has stopped
+        torch.randn(8) + 1
+    assert list(span_readings()) == ["on.span"] and span_readings()["on.span"][1] == 1
+
+
+def test_readings_sum_by_name_with_nested_spans_and_reset():
+    reset_span_readings()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            with span("outer"):
+                with span("inner"):
+                    time.sleep(0.005)
+                with span("inner"):
+                    time.sleep(0.005)
+    readings = span_readings()
+    (outer_ms, outer_n), (inner_ms, inner_n) = readings["outer"], readings["inner"]
+    assert set(readings) == {"outer", "inner"} and (outer_n, inner_n) == (3, 6)
+    assert inner_ms >= 6 * 5.0  # the host clock: CUDA is not initialized here
+    assert outer_ms >= inner_ms  # the nested spans are inside the outer's reading
+    assert span_readings() == readings  # reading changes nothing
+    reset_span_readings()
+    assert span_readings() == {}
+
+
+def test_two_threads_spans_land_in_one_set_of_readings():
+    reset_span_readings()
+    barrier = threading.Barrier(2, timeout=30)
+
+    def work():
+        barrier.wait()
+        for _ in range(200):
+            with span("threaded.span"):
+                pass
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            threads = [threading.Thread(target=work) for _ in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert span_readings()["threaded.span"][1] == 400
+
+
+def test_device_trace_resets_the_readings(tmp_path):
+    reset_span_readings()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("before.trace"):
+            torch.randn(8) + 1
+    assert "before.trace" in span_readings()
+    with device_trace(str(tmp_path / "trace")):
+        with span("in.trace"):
+            torch.randn(8) + 1
+    assert {name: n for name, (_, n) in span_readings().items()} == {"in.trace": 1}
+
+
 def _wavlm_scorer():
     torch.manual_seed(0)
     cfg = dataclasses.replace(WAVLM_LARGE, conv_dim=16, hidden=32, heads=2, ffn=64, layers=2, pos_kernel=8,
@@ -100,16 +177,33 @@ def _w2vbert_scorer():
     return make_w2vbert_mhfa_scorer(W2VBertMHFA(cfg, heads=4, compression=8, outputs=8))
 
 
+def _xlsr_scorer():
+    torch.manual_seed(0)
+    cfg = XLSRConfig(conv_dim=16, hidden=32, heads=2, ffn=64, layers=2, pos_kernel=8, pos_groups=2)
+    return make_xlsr_aasist_scorer(SSLAASIST(cfg))
+
+
+REMOVED = ["lstm.last_only", "gmm.kernel"]  # spans the port no longer opens
+
+
 @pytest.mark.parametrize(
-    "make,inner,absent",
-    [(_mel_scorer, [], ["lstm.last_only"]), (_fused_scorer, ["fused.gmm", "lstm.last_only"], []),
-     (_wavlm_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm"]),
-     (_w2vbert_scorer, ["mhfa.pool"], ["lstm.last_only", "fused.gmm", "wavlm.gated_bias"])],
-    ids=["mel", "fused", "wavlm", "w2vbert"],
+    "make,inner,absent,wav_len",
+    [(_mel_scorer, {"score.model": {"lstm.layer": 1}}, ["ssl.attend"], 32000),
+     (_fused_scorer, {"score.model": {"fused.gmm": 1, "lstm.layer": 2}}, ["ssl.attend"], 32000),
+     (_wavlm_scorer, {"score.model": {"mhfa.pool": 1}, "score.frontend": {"ssl.attend": 2}},
+      ["lstm.layer", "fused.gmm"], 32000),
+     (_w2vbert_scorer, {"score.model": {"mhfa.pool": 1}, "score.frontend": {"ssl.attend": 2}},
+      ["lstm.layer", "fused.gmm", "wavlm.gated_bias"], 32000),
+     (_xlsr_scorer, {"score.model": {"aasist.graph": 1}, "score.frontend": {"ssl.attend": 2}},
+      ["lstm.layer", "fused.gmm", "mhfa.pool"], 16000)],
+    ids=["mel", "fused", "wavlm", "w2vbert", "xlsr"],
 )
-def test_scorer_spans_nest(make, inner, absent):
+def test_scorer_spans_nest(make, inner, absent, wav_len):
+    """``inner``: the spans each call opens inside ``score.model`` or
+    ``score.frontend``, with their number a call (``ssl.attend`` once a
+    layer: two in these tiny encoders, 24 at the published depth)."""
     score = make()
-    wav = _wav(2)
+    wav = _wav(2, wav_len)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(2):
             score(wav)
@@ -118,12 +212,15 @@ def test_scorer_spans_nest(make, inner, absent):
     spans = _spans(prof)
     calls = _named(spans, "score.call")
     assert len(calls) == 2
-    for name in ["score.frontend", "score.model"] + inner:
+    for name in ["score.frontend", "score.model"]:
         found = _named(spans, name)
         assert len(found) == 2 and all(any(_inside(s, c) for c in calls) for s in found), name
-    for name in inner:
-        assert all(any(_inside(s, m) for m in _named(spans, "score.model")) for s in _named(spans, name)), name
-    for name in absent:
+    for outer, counts in inner.items():
+        for name, per_call in counts.items():
+            found = _named(spans, name)
+            assert len(found) == 2 * per_call, name
+            assert all(any(_inside(s, o) for o in _named(spans, outer)) for s in found), name
+    for name in absent + REMOVED:
         assert not _named(spans, name), name
     front, model = _named(spans, "score.frontend"), _named(spans, "score.model")
     assert all(f[2] <= m[1] for f, m in zip(front, model))  # frontend, then model

@@ -271,11 +271,12 @@ def test_scorer_is_the_bona_fide_logit_under_spans(setup):
              for e in prof.profiler.kineto_results.events() if e.is_user_annotation()]
     named = {n: [s for s in spans if s[0] == n] for n in {s[0] for s in spans}}
     counts = {"score.call": 1, "score.frontend": 1, "score.model": 1, "w2vbert.fbank": 1, "w2vbert.encoder": 1,
-              "w2vbert.rel_key": CFG["layers"], "w2vbert.conv_module": CFG["layers"], "mhfa.pool": 1}
+              "w2vbert.rel_key": CFG["layers"], "w2vbert.conv_module": CFG["layers"], "ssl.attend": CFG["layers"],
+              "mhfa.pool": 1}
     assert {n: len(v) for n, v in named.items()} == counts
     nest = {"score.frontend": "score.call", "score.model": "score.call", "w2vbert.fbank": "score.frontend",
             "w2vbert.encoder": "score.frontend", "w2vbert.rel_key": "w2vbert.encoder",
-            "w2vbert.conv_module": "w2vbert.encoder", "mhfa.pool": "score.model"}
+            "w2vbert.conv_module": "w2vbert.encoder", "ssl.attend": "w2vbert.encoder", "mhfa.pool": "score.model"}
     for inner, outer in nest.items():
         (o,) = named[outer]
         assert all(o[1] <= s[1] and s[2] <= o[2] for s in named[inner]), inner

@@ -220,11 +220,12 @@ def test_scorer_is_the_bona_fide_logit_under_spans(setup):
              for e in prof.profiler.kineto_results.events() if e.is_user_annotation()]
     named = {n: [s for s in spans if s[0] == n] for n in {s[0] for s in spans}}
     counts = {"score.call": 1, "score.frontend": 1, "score.model": 1, "wavlm.features": 1, "wavlm.encoder": 1,
-              "wavlm.position_bias": 1, "wavlm.gated_bias": CFG["layers"], "mhfa.pool": 1}
+              "wavlm.position_bias": 1, "wavlm.gated_bias": CFG["layers"], "ssl.attend": CFG["layers"],
+              "mhfa.pool": 1}
     assert {n: len(v) for n, v in named.items()} == counts
     nest = {"score.frontend": "score.call", "score.model": "score.call", "wavlm.features": "score.frontend",
             "wavlm.encoder": "score.frontend", "wavlm.position_bias": "wavlm.encoder",
-            "wavlm.gated_bias": "wavlm.encoder", "mhfa.pool": "score.model"}
+            "wavlm.gated_bias": "wavlm.encoder", "ssl.attend": "wavlm.encoder", "mhfa.pool": "score.model"}
     for inner, outer in nest.items():
         (o,) = named[outer]
         assert all(o[1] <= s[1] and s[2] <= o[2] for s in named[inner]), inner
