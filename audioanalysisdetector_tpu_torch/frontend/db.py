@@ -4,6 +4,11 @@ Counterpart of the JAX package's ``frontend/db.py``. ``ref="max"``
 is a *per-utterance* reference: the max is taken over each utterance's own
 trailing ``utt_axes`` axes, never over the whole batch; ``top_db`` clipping
 is per utterance too.
+
+At the parity profile on the card, ``log_mel_spectrogram`` and
+``ct_log_mel`` do not call ``power_to_db`` where ``ops.ct_mel.db_refusals``
+names no reason: K3's dB instance (``ops.ct_mel.ct_mel_db``) computes it in
+its epilogue, in this function's order and roundings.
 """
 
 from __future__ import annotations

@@ -223,5 +223,14 @@ def log_mel_spectrogram(
 ) -> torch.Tensor:
     """``power_to_db(melspectrogram(y), ref=max)`` — the reference's
     ``extract_mel_spectrogram`` contract, batched, with a per-utterance dB
-    reference."""
+    reference.
+
+    Where ``ops.ct_mel.db_refusals`` names no reason (a CUDA float32 tensor
+    at the parity profile, ``ref="max"``, ``top_db`` None or >= 0, clips up
+    to ~5.9 s at 64 mels, no grad), K3 writes the dB itself in one launch
+    (``ct_mel_db``), bitwise this chain, in ``melspectrogram``'s layout."""
+    from audioanalysisdetector_tpu_torch.ops import ct_mel as k3  # imports this module
+
+    if not k3.db_refusals(y, cfg, ref=ref, top_db=top_db):
+        return k3.ct_mel_db(y, cfg, top_db=top_db).transpose(-1, -2)
     return power_to_db(melspectrogram(y, cfg), ref=ref, top_db=top_db, utt_axes=2)

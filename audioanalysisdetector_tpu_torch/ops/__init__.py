@@ -21,9 +21,10 @@ and hands a CUDA tensor's operands to ``launch``, the one launch path: it
 refuses an input that needs a backward, calls the C entry point that
 ``_build.entry_point`` loaded on the current stream, and counts the launch
 in the ledger. ``launch_counts`` and ``reset_launch_counts`` read and zero
-it: each kernel's launches, and ``ct_mel.reflect``, K3's launches on a raw
-waveform (the center reflect pad folded into its frame addressing). A new
-kernel adds its name to ``LAUNCH_COUNTERS``.
+it: each kernel's launches, ``ct_mel.reflect``, K3's launches on a raw
+waveform (the center reflect pad folded into its frame addressing), and
+``ct_mel.db``, K3's launches that write the log-mel in dB (``power_to_db``
+in its epilogue). A new kernel adds its name to ``LAUNCH_COUNTERS``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import threading
 
 import torch
 
-LAUNCH_COUNTERS = ("wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc", "gmm_llr")
+LAUNCH_COUNTERS = (
+    "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "cqcc", "gmm_llr"
+)
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads
 

@@ -57,10 +57,28 @@
 //     for bin k at row row[m] + k - lo[m], column = the lane that sums it,
 //     with one row base for the filters the lanes take together, so each
 //     step's warp load is one 128-byte line.
+//  8. The dB instance (DB, entry ct_mel_db_launch) writes power_to_db(S, ref = max,
+//     amin = 1e-10, top_db) of each utterance instead of its power S: one block per
+//     utterance, warp w taking frames w, w + 8, ... through steps 2-6 unchanged and step 7's
+//     sums unchanged, so each power is bitwise the power-only instance's. Step 7 stores
+//     l = 10 log10(max(S, amin)) to the block's (T, n_mels) tile in shared memory, each
+//     lane keeping its running max of S and of l. After one barrier the block has Smax and
+//     lmax, ref = 10 log10(max(Smax, amin)), ls = l - ref, its peak exactly lmax - ref
+//     (rounding is monotone, so the max commutes with subtracting ref) and
+//     max(ls, peak - top_db). Each product and difference is rounded on its own
+//     (__fmul_rn, __fsub_rn, accurate log10f), as torch's separate kernels round them, with
+//     their NaN propagation; the result goes to out in the power's (B, T, n_mels) layout, so
+//     no power tensor reaches device memory. The dB adds ~10 operations an output value,
+//     under 0.1% of a frame's 65.4k: the bound is the same (the launch takes 2.56 ms against
+//     the power-only 2.47 at B = 8192, parity; log10f is many instructions). The mel tile caps
+//     T * n_mels where two blocks an SM still fit (the wrapper's refusal "tile"); the grain
+//     is an utterance (B blocks), where the power-only instance's is 8 frame rows. Four
+//     warps a block (four blocks an SM) and sixteen (one) were slower.
 // Every twiddle comes from float64 on the host or from the W_32 literals
 // below; no sincos runs on the card.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
@@ -138,22 +156,37 @@ __device__ __forceinline__ float filter_sum(const float* pw, const float* __rest
 // Index i of a signal of n, mirrored off either end as librosa's reflect pad (one bounce).
 __device__ __forceinline__ int reflect(int i, int n) { return i < 0 ? -i : i >= n ? 2 * (n - 1) - i : i; }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-ct_mel_kernel(const float* __restrict__ wav, const float2* __restrict__ win,
-              const float2* __restrict__ tw1, const float2* __restrict__ tw2,
-              const float* __restrict__ melw, const int* __restrict__ spans,
-              float* __restrict__ out, int n_rows, int n_frames, long long n_sig, int left,
-              int hop, int n_mels) {
-  extern __shared__ float2 smem[];  // [WARPS][R * TS]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + warp;
-  if (r >= n_rows) return;
-  float2* tile = smem + warp * (R * TS);
+// max(a, b) that returns NaN where either is NaN, as torch's clamp, amax and maximum do.
+__device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
 
+constexpr float AMIN = 1e-10f;  // the dB instance's amin
+
+// Step 7's store of filter m's power S: S itself, or with DB l = 10 log10(max(S, amin)) (each
+// product rounded on its own, accurate log10f), keeping the running maxima of S and of l.
+template <bool DB>
+__device__ __forceinline__ void put(float* orow, int m, float s, float& smax, float& lmax) {
+  if constexpr (DB) {
+    const float l = __fmul_rn(10.0f, log10f(max_nan(s, AMIN)));
+    smax = max_nan(smax, s);
+    lmax = max_nan(lmax, l);
+    orow[m] = l;
+  } else {
+    orow[m] = s;
+  }
+}
+
+// Steps 2-7 for the frame that starts at sample s of `row` (n_sig samples): its n_mels mel
+// values (put<DB>) to orow (device or shared memory), through the warp's transpose tile, which
+// holds the frame's power row on return.
+template <bool VEC, bool DB>
+__device__ __forceinline__ void frame_mel(const float* __restrict__ row, long long s, long long n_sig,
+                                          const float2* __restrict__ win,
+                                          const float2* __restrict__ tw1,
+                                          const float2* __restrict__ tw2,
+                                          const float* __restrict__ melw,
+                                          const int* __restrict__ spans, float2* tile, float* orow,
+                                          int n_mels, int lane, float& smax, float& lmax) {
   // 2. pack and window: register b holds z[lane + 32 b], samples s + 2 lane + 64 b and the next
-  const float* row = wav + (long long)(r / n_frames) * n_sig;
-  const long long s = (long long)(r % n_frames) * hop - left;
   float re[R], im[R];
   if (s >= 0 && s + NFFT <= n_sig) {  // interior frame
     const float* src = row + s + 2 * lane;
@@ -230,31 +263,134 @@ ct_mel_kernel(const float* __restrict__ wav, const float2* __restrict__ win,
   __syncwarp();
 
   // 7. mel: lane l takes the filter pairs (m, n_mels - 1 - m), m = l, l + 32, ...
-  float* orow = out + (long long)r * n_mels;
   for (int m = lane; m < (n_mels + 1) / 2; m += R) {
-    orow[m] = filter_sum(pw, melw, spans, m, n_mels, lane);
+    put<DB>(orow, m, filter_sum(pw, melw, spans, m, n_mels, lane), smax, lmax);
     const int m2 = n_mels - 1 - m;
-    if (m2 != m) orow[m2] = filter_sum(pw, melw, spans, m2, n_mels, lane);
+    if (m2 != m) put<DB>(orow, m2, filter_sum(pw, melw, spans, m2, n_mels, lane), smax, lmax);
   }
 }
 
-template <bool VEC>
+// The block's max_nan of every thread's a and of its b, for every thread, through red[2 WARPS].
+// Max is exact, so the order of the reduction does not show. The barrier also makes every
+// warp's stores to shared memory before it visible to the block.
+__device__ __forceinline__ float2 block_max(float a, float b, float* red) {
+#pragma unroll
+  for (int o = R / 2; o; o >>= 1) {
+    a = max_nan(a, __shfl_xor_sync(FULL, a, o));
+    b = max_nan(b, __shfl_xor_sync(FULL, b, o));
+  }
+  if ((threadIdx.x & (R - 1)) == 0) {
+    red[threadIdx.x / R] = a;
+    red[WARPS + threadIdx.x / R] = b;
+  }
+  __syncthreads();
+  a = red[0];
+  b = red[WARPS];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    a = max_nan(a, red[w]);
+    b = max_nan(b, red[WARPS + w]);
+  }
+  return make_float2(a, b);
+}
+
+// 8. The rest of power_to_db(S, ref = max, amin, top_db) on one utterance's n values
+// l = 10 log10(max(S, amin)) in shared memory, whose maxima over the thread are smax (of S) and
+// lmax (of l), to out; top_db < 0 leaves the clip out. ls = l - ref, and its peak is exactly
+// lmax - ref: rounding is monotone, so max(l - ref) = max(l) - ref, NaN and inf alike.
+__device__ __forceinline__ void db_epilogue(const float* mel, int n, float smax, float lmax,
+                                            float* __restrict__ out, float top_db, float* red) {
+  const float2 mx = block_max(smax, lmax, red);
+  const float ref = __fmul_rn(10.0f, log10f(max_nan(mx.x, AMIN)));
+  const float clip = __fsub_rn(__fsub_rn(mx.y, ref), top_db);
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float ls = __fsub_rn(mel[i], ref);
+    out[i] = top_db < 0.0f ? ls : max_nan(ls, clip);
+  }
+}
+
+template <bool VEC, bool DB>
+__global__ void __launch_bounds__(THREADS, 2)
+ct_mel_kernel(const float* __restrict__ wav, const float2* __restrict__ win,
+              const float2* __restrict__ tw1, const float2* __restrict__ tw2,
+              const float* __restrict__ melw, const int* __restrict__ spans,
+              float* __restrict__ out, int n_rows, int n_frames, long long n_sig, int left,
+              int hop, int n_mels, float top_db) {
+  // [WARPS][R * TS] float2, then with DB the (n_frames, n_mels) mel tile and red[2 WARPS]
+  extern __shared__ float2 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float2* tile = smem + warp * (R * TS);
+  float smax = -CUDART_INF_F, lmax = -CUDART_INF_F;
+  if constexpr (!DB) {
+    const int r = blockIdx.x * WARPS + warp;
+    if (r >= n_rows) return;
+    frame_mel<VEC, false>(wav + (long long)(r / n_frames) * n_sig, (long long)(r % n_frames) * hop - left,
+                          n_sig, win, tw1, tw2, melw, spans, tile, out + (long long)r * n_mels, n_mels,
+                          lane, smax, lmax);
+  } else {  // 8. block u holds utterance u
+    float* mel = reinterpret_cast<float*>(smem + WARPS * R * TS);
+    const int n = n_frames * n_mels;
+    const float* row = wav + (long long)blockIdx.x * n_sig;
+    for (int f = warp; f < n_frames; f += WARPS) {
+      frame_mel<VEC, true>(row, (long long)f * hop - left, n_sig, win, tw1, tw2, melw, spans, tile,
+                           mel + f * n_mels, n_mels, lane, smax, lmax);
+      __syncwarp();  // every lane has read the power row: the next frame may write the tile
+    }
+    db_epilogue(mel, n, smax, lmax, out + (long long)blockIdx.x * n, top_db, mel + n);
+  }
+}
+
+// Dynamic shared memory of a block: the warps' transpose tiles, and with DB the mel tile and red.
+constexpr size_t TILES_SMEM = sizeof(float2) * WARPS * R * TS;  // 67,584 bytes
+size_t smem_bytes(bool db, int n_frames, int n_mels) {
+  return TILES_SMEM + (db ? sizeof(float) * ((size_t)n_frames * n_mels + 2 * WARPS) : 0);
+}
+// The dB instance's cap: two blocks, each with the 1 KB the runtime reserves, in an SM's 228 KB
+constexpr size_t DB_SMEM_MAX = (228 * 1024) / 2 - 1024;  // 115,712 bytes
+
+template <bool VEC, bool DB>
 cudaError_t launch(const float* wav, const float2* win, const float2* tw1, const float2* tw2,
                    const float* melw, const int* spans, float* out, int n_rows, int n_frames,
-                   long long n_sig, int left, int hop, int n_mels, cudaStream_t s) {
-  const size_t smem = sizeof(float2) * WARPS * R * TS;  // 67,584 bytes
-  cudaError_t err =
-      cudaFuncSetAttribute(ct_mel_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   long long n_sig, int left, int hop, int n_mels, float top_db, cudaStream_t s) {
+  const size_t smem = smem_bytes(DB, n_frames, n_mels);
+  cudaError_t err = cudaFuncSetAttribute(ct_mel_kernel<VEC, DB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)(((long long)n_rows + WARPS - 1) / WARPS);
-  ct_mel_kernel<VEC><<<blocks, THREADS, smem, s>>>(wav, win, tw1, tw2, melw, spans, out, n_rows,
-                                                   n_frames, n_sig, left, hop, n_mels);
+  // power: 8 frame rows a block; dB: one utterance (n_frames rows) a block
+  const unsigned blocks = (unsigned)(DB ? n_rows / n_frames : ((long long)n_rows + WARPS - 1) / WARPS);
+  ct_mel_kernel<VEC, DB><<<blocks, THREADS, smem, s>>>(wav, win, tw1, tw2, melw, spans, out, n_rows,
+                                                       n_frames, n_sig, left, hop, n_mels, top_db);
   return cudaGetLastError();
+}
+
+// Checks and launches either instance; db selects the dB epilogue (top_db < 0: no clip).
+int launch_checked(bool db, const void* wav, const void* win, const void* tw1, const void* tw2,
+                   const void* melw, const void* spans, void* out, int n_rows, int n_frames,
+                   long long n_sig, int left, int hop, int n_mels, float top_db, void* stream) {
+  // one bounce must bring every index a frame reaches into [0, n_sig)
+  if (n_rows < 0 || n_frames < 1 || hop < 1 || n_mels < 1 || left < 0 || left >= n_sig ||
+      (long long)(n_frames - 1) * hop - left + NFFT - 1 > 2 * (n_sig - 1))
+    return (int)cudaErrorInvalidValue;
+  if (db && (n_rows % n_frames || smem_bytes(true, n_frames, n_mels) > DB_SMEM_MAX || top_db != top_db))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(win) | reinterpret_cast<uintptr_t>(tw1) |
+       reinterpret_cast<uintptr_t>(tw2)) % 8)
+    return (int)cudaErrorMisalignedAddress;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const bool vec = reinterpret_cast<uintptr_t>(wav) % 8 == 0 && n_sig % 2 == 0 && left % 2 == 0 &&
+                   hop % 2 == 0;
+  const auto go = db ? (vec ? &launch<true, true> : &launch<false, true>)
+                     : (vec ? &launch<true, false> : &launch<false, false>);
+  return (int)go(static_cast<const float*>(wav), static_cast<const float2*>(win),
+                 static_cast<const float2*>(tw1), static_cast<const float2*>(tw2),
+                 static_cast<const float*>(melw), static_cast<const int*>(spans),
+                 static_cast<float*>(out), n_rows, n_frames, n_sig, left, hop, n_mels, top_db,
+                 static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Pointers are device pointers to
+// Plain C entry points (bound with ctypes). Pointers are device pointers to
 // contiguous arrays: wav (B, n_sig) f32, raw (left = 1024) or center-padded
 // (left = 0), every frame's reach reflecting into its row; win (2048,) f32 (read as 1024
 // float2 pairs); tw1 (32 c, 32 a, 2) f32 = W_1024^(a c); tw2 (1025, 2) f32 =
@@ -264,24 +400,23 @@ cudaError_t launch(const float* wav, const float2* win, const float2* tw1, const
 // n_frames. win, tw1 and tw2 must be 8-byte aligned. Interior frames are read
 // as float2 when wav is 8-byte aligned and n_sig, left and hop are even, else
 // as floats. Launches on `stream`; returns the first cudaError_t (0 on success).
+//
+// ct_mel_launch writes the mel power.
 extern "C" int ct_mel_launch(const void* wav, const void* win, const void* tw1, const void* tw2,
                              const void* melw, const void* spans, void* out, int n_rows,
                              int n_frames, long long n_sig, int left, int hop, int n_mels,
                              void* stream) {
-  // one bounce must bring every index a frame reaches into [0, n_sig)
-  if (n_rows < 0 || n_frames < 1 || hop < 1 || n_mels < 1 || left < 0 || left >= n_sig ||
-      (long long)(n_frames - 1) * hop - left + NFFT - 1 > 2 * (n_sig - 1))
-    return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(win) | reinterpret_cast<uintptr_t>(tw1) |
-       reinterpret_cast<uintptr_t>(tw2)) % 8)
-    return (int)cudaErrorMisalignedAddress;
-  if (n_rows == 0) return (int)cudaSuccess;
-  const bool vec = reinterpret_cast<uintptr_t>(wav) % 8 == 0 && n_sig % 2 == 0 && left % 2 == 0 &&
-                   hop % 2 == 0;
-  const auto go = vec ? &launch<true> : &launch<false>;
-  return (int)go(static_cast<const float*>(wav), static_cast<const float2*>(win),
-                 static_cast<const float2*>(tw1), static_cast<const float2*>(tw2),
-                 static_cast<const float*>(melw), static_cast<const int*>(spans),
-                 static_cast<float*>(out), n_rows, n_frames, n_sig, left, hop, n_mels,
-                 static_cast<cudaStream_t>(stream));
+  return launch_checked(false, wav, win, tw1, tw2, melw, spans, out, n_rows, n_frames, n_sig, left,
+                        hop, n_mels, 0.0f, stream);
+}
+
+// ct_mel_db_launch writes power_to_db of each utterance's (n_frames, n_mels) power, ref = its
+// max, amin 1e-10, clipped top_db below its peak (top_db < 0: no clip; NaN is refused); the
+// mel tile must leave two blocks an SM (4 (n_frames n_mels + 16) + 67,584 <= 115,712 bytes).
+extern "C" int ct_mel_db_launch(const void* wav, const void* win, const void* tw1, const void* tw2,
+                                const void* melw, const void* spans, void* out, int n_rows,
+                                int n_frames, long long n_sig, int left, int hop, int n_mels,
+                                float top_db, void* stream) {
+  return launch_checked(true, wav, win, tw1, tw2, melw, spans, out, n_rows, n_frames, n_sig, left,
+                        hop, n_mels, top_db, stream);
 }

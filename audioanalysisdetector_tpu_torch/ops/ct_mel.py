@@ -30,6 +30,14 @@ on the card librosa's reflect pad writes no padded copy.
 ``ct_mel_reference`` on a CPU tensor (after ``center_pad``). There is no
 fallback: a failed build or a refused launch raises. Unlike the TPU kernel,
 any batch size is taken.
+
+``ct_mel_db`` launches the kernel's dB instance on raw waveforms: one block
+an utterance keeps the (T, n_mels) power in shared memory and writes
+``power_to_db(ref="max", top_db)`` of it, bitwise ``power_to_db`` of
+``ct_mel_unpadded``'s power, so no power tensor reaches device memory.
+``ct_log_mel`` and ``frontend/mel.py::log_mel_spectrogram`` take it where
+``db_refusals`` names no reason, and ``ct_mel_unpadded`` + ``power_to_db``
+everywhere else.
 """
 
 from __future__ import annotations
@@ -54,6 +62,13 @@ LANES = 32  # the FFT kernel's warp: one frame row, 32 x 32 registers
 _ARGTYPES = (
     (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 )
+# ct_mel_db_launch: the same, then top_db (negative: no clip) before the stream
+_DB_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_float, ctypes.c_void_p)
+DB_AMIN = 1e-10  # the dB instance's amin, power_to_db's default
+# the dB instance's dynamic shared memory: the 8 warps' transpose tiles, then
+# the (T, n_mels) mel tile and 16 floats; at most what leaves two blocks an SM
+_DB_TILES_BYTES = 8 * 32 * 33 * 8
+_DB_SMEM_MAX = 228 * 1024 // 2 - 1024
 
 
 def _refusal(cfg: MelConfig, dtype: torch.dtype = torch.float32) -> Exception | None:
@@ -220,21 +235,44 @@ def ct_mel(
     return _launch(wav_padded, cfg, n_frames, left=0)
 
 
-def _launch(wav: torch.Tensor, cfg: MelConfig, n_frames: int, *, left: int) -> torch.Tensor:
+def _launch(
+    wav: torch.Tensor, cfg: MelConfig, n_frames: int, *, left: int, db: bool = False, top_db: float | None = None
+) -> torch.Tensor:
     """The kernel on contiguous ``(B, n_sig)`` float32 rows whose frame f
     starts at sample ``f * hop - left`` (the kernel reflects what lies
-    outside a row) -> ``(B, n_frames, n_mels)``, on the current stream. A
-    launch on raw rows (``left`` > 0) also counts as ``ct_mel.reflect``."""
+    outside a row) -> ``(B, n_frames, n_mels)``, on the current stream: the
+    mel power, or with ``db`` each utterance's ``power_to_db(ref="max",
+    top_db)``. A launch on raw rows (``left`` > 0) also counts as
+    ``ct_mel.reflect``, a dB launch as ``ct_mel.db``."""
     B, n_sig = wav.shape
     win, tw1, tw2, melw, spans = _kernel_operands(cfg, wav.device)
     out = torch.empty((B, n_frames, cfg.n_mels), dtype=torch.float32, device=wav.device)
-    launch(
-        _build.entry_point("ct_mel", "ct_mel_launch", _ARGTYPES), wav, "ct_mel",
+    args = (
         wav.data_ptr(), win.data_ptr(), tw1.data_ptr(), tw2.data_ptr(), melw.data_ptr(), spans.data_ptr(),
         out.data_ptr(), B * n_frames, n_frames, n_sig, left, cfg.hop_length, cfg.n_mels,
-        rows=B * n_frames, counters=("ct_mel.reflect",) if left else (),
     )
+    counters = ("ct_mel.reflect",) if left else ()
+    if db:
+        entry = _build.entry_point("ct_mel", "ct_mel_db_launch", _DB_ARGTYPES)
+        args += (-1.0 if top_db is None else float(top_db),)
+        counters += ("ct_mel.db",)
+    else:
+        entry = _build.entry_point("ct_mel", "ct_mel_launch", _ARGTYPES)
+    launch(entry, wav, "ct_mel", *args, rows=B * n_frames, counters=counters)
     return out
+
+
+def _raw_rows(flat: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """``(B, n)`` raw rows for a launch with ``left = n_fft // 2``, contiguous,
+    after the checks ``center_pad``'s reflect mode would make."""
+    _check(cfg, flat.dtype)
+    pad = cfg.n_fft // 2
+    if flat.shape[-1] <= pad:  # as F.pad's reflect mode refuses it
+        raise RuntimeError(
+            f"Padding size should be less than the corresponding input dimension, but got: "
+            f"padding ({pad}, {pad}) of an input of {flat.shape[-1]} samples"
+        )
+    return flat.contiguous()
 
 
 def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
@@ -252,14 +290,59 @@ def ct_mel_unpadded(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
         with span("mel.pad"):
             padded = center_pad(flat, cfg.n_fft, cfg.pad_mode)
         return ct_mel(padded, cfg, n_frames=n_frames).reshape(*lead, n_frames, cfg.n_mels)
-    _check(cfg, flat.dtype)
-    pad = cfg.n_fft // 2
-    if n <= pad:  # as F.pad's reflect mode refuses it
-        raise RuntimeError(
-            f"Padding size should be less than the corresponding input dimension, but got: "
-            f"padding ({pad}, {pad}) of an input of {n} samples"
-        )
-    return _launch(flat.contiguous(), cfg, n_frames, left=pad).reshape(*lead, n_frames, cfg.n_mels)
+    rows = _raw_rows(flat, cfg)
+    return _launch(rows, cfg, n_frames, left=cfg.n_fft // 2).reshape(*lead, n_frames, cfg.n_mels)
+
+
+def db_refusals(
+    y: torch.Tensor, cfg: MelConfig, *, ref: float | str = "max", top_db: float | None = 80.0, amin: float = DB_AMIN
+) -> list[str]:
+    """Why K3's dB instance cannot compute ``power_to_db(melspectrogram(y,
+    cfg), ref=ref, amin=amin, top_db=top_db)``, each reason by name, or an
+    empty list: it takes float32 waveforms on the card, under a
+    configuration ``melspectrogram`` sends to K3 (``mel_route`` ``"ct_mel"``,
+    ``method="matmul"``), ``ref="max"``, ``top_db`` None or >= 0, amin 1e-10,
+    a (T, n_mels) mel tile that leaves two blocks an SM (T * n_mels <=
+    12,016: 64 mels up to T = 187, 5.9-s clips at hop 512), and no backward
+    (autograd would need one when grad mode is on and ``y`` requires grad)."""
+    why = []
+    if not y.is_cuda:
+        why.append("device")
+    if y.dtype != torch.float32:
+        why.append("dtype")
+    if not takes(cfg, torch.float32) or cfg.method != "matmul":
+        why.append("config")
+    if not (isinstance(ref, str) and ref == "max"):
+        why.append("ref")
+    if top_db is not None and not top_db >= 0:
+        why.append("top_db")
+    if amin != DB_AMIN:
+        why.append("amin")
+    n_frames = 1 + (y.shape[-1] if y.dim() else 0) // cfg.hop_length
+    if _DB_TILES_BYTES + 4 * (n_frames * cfg.n_mels + 16) > _DB_SMEM_MAX:
+        why.append("tile")
+    if torch.is_grad_enabled() and y.requires_grad:
+        why.append("grad")
+    return why
+
+
+def ct_mel_db(y: torch.Tensor, cfg: MelConfig = MelConfig(), *, top_db: float | None = 80.0) -> torch.Tensor:
+    """``(..., n)`` raw float32 waveforms on the card -> ``(..., T, n_mels)``
+    log-mel in dB through K3's dB instance, in one launch: bitwise
+    ``power_to_db(ct_mel_unpadded(y, cfg).transpose(-1, -2), ref="max",
+    top_db=top_db).transpose(-1, -2)``, in ``ct_mel_unpadded``'s layout.
+    Call it where ``db_refusals(y, cfg, top_db=top_db)`` is empty; a signal
+    of n_fft // 2 samples or fewer raises what ``center_pad`` raises."""
+    if not on_card(y, "ct_mel"):
+        raise ValueError("K3's dB instance runs on the card: log_mel_spectrogram computes a CPU tensor")
+    why = [r for r in db_refusals(y, cfg, top_db=top_db) if r not in ("device", "grad")]  # launch raises on grad
+    if why:
+        raise ValueError(f"K3's dB instance cannot take this input: {', '.join(why)}")
+    lead, n = y.shape[:-1], y.shape[-1]
+    n_frames = 1 + n // cfg.hop_length
+    rows = _raw_rows(y.reshape(-1, n), cfg)
+    out = _launch(rows, cfg, n_frames, left=cfg.n_fft // 2, db=True, top_db=top_db)
+    return out.reshape(*lead, n_frames, cfg.n_mels)
 
 
 def ct_log_mel(
@@ -272,6 +355,10 @@ def ct_log_mel(
     """Drop-in (B, n) -> (B, n_mels, T) log-mel via the CT kernel.
 
     As in the JAX package, the signal is always center padded with
-    ``cfg.pad_mode`` and T = 1 + n // hop."""
+    ``cfg.pad_mode`` and T = 1 + n // hop. Where ``db_refusals`` names no
+    reason, K3 writes the dB itself (``ct_mel_db``); else ``power_to_db``
+    of ``ct_mel_unpadded``'s power."""
+    if not db_refusals(wav, cfg, ref=ref, top_db=top_db):
+        return ct_mel_db(wav, cfg, top_db=top_db).transpose(-1, -2)
     mel = ct_mel_unpadded(wav, cfg).transpose(-1, -2)
     return power_to_db(mel, ref=ref, top_db=top_db, utt_axes=2)

@@ -33,7 +33,11 @@ each print their lines:
    K3's frame addressing) bitwise equal to it, its log-mel against the
    plain dB, its time against its plain version, the library chain and K1
    in turns, beside the bound; K3 on raw rows against ``center_pad`` + K3
-   and K3 on rows padded beforehand, in turns, at B=8192;
+   and K3 on rows padded beforehand, in turns, at B=8192; the dB instance
+   (``log_mel_spectrogram``'s route: ``power_to_db`` in K3's epilogue)
+   bitwise K3's power + ``power_to_db`` in each case whose tile fits, one
+   launch counted as ``ct_mel.db``, and its time against that chain and
+   K3's power alone, in turns, at B=8192;
 5. K2: ``fused_mel_from_frames`` against its plain version in float32 and
    bfloat16 (8192 utterances' frames, a ragged 100) in both profiles, with
    128 mels and at n_fft 100 off alignment, bf16 against f32, the times
@@ -748,9 +752,16 @@ def phase_k3() -> dict:
         db_ref = power_to_db(direct.transpose(1, 2), ref="max", top_db=80.0)
         del direct
         db = float((ctm.ct_log_mel(wav, cfg) - db_ref).abs().max())
+        in_db = not ctm.db_refusals(wav, cfg)  # 256 mels: the tile leaves one block an SM
+        if in_db:
+            db_k3, counts = run_counted(lambda: log_mel_spectrogram(wav, cfg))
+            if not torch.equal(db_k3, power_to_db(got.transpose(1, 2), ref="max", top_db=80.0)) \
+                    or counts["ct_mel.db"] != 1 or counts["ct_mel"] != 1:
+                raise AssertionError(f"K3 {case}: the dB instance is not K3's power + power_to_db ({counts})")
+            del db_k3
         log("k3", case=case, batch=batch, n=n, n_mels=cfg.n_mels,
             rel_err_vs_ct_plain=f"{rel_ct:.3e}", rel_err_vs_direct_plain=f"{rel_direct:.3e}",
-            db_err=f"{db:.3e}")
+            db_err=f"{db:.3e}", db_instance_bitwise=in_db or "refused")
         db_tol = DB_TOL if cfg.n_mels <= 128 else DB_TOL_MANY_MELS
         if max(rel_ct, rel_direct) > REL_TOL or db > db_tol:
             raise AssertionError(
@@ -789,9 +800,17 @@ def phase_k3() -> dict:
         k3_on_padded_ms=f"{fold['library_ms']:.3f}", raw_runs="%.3f,%.3f" % fold["runs"],
         pad_then_k3_runs="%.3f,%.3f" % fold["plain_runs"], k3_on_padded_runs="%.3f,%.3f" % fold["library_runs"],
         raw_extra_bytes=extra_bytes(raw), pad_then_k3_extra_bytes=extra_bytes(pad_then_k3))
+    # the dB instance against K3's power + power_to_db, and K3's power alone
+    db_k3 = lambda: log_mel_spectrogram(wav, cfg)  # noqa: E731
+    power_db = lambda: power_to_db(raw().transpose(1, 2), ref="max", top_db=80.0)  # noqa: E731
+    dbt = in_turns(db_k3, power_db, raw)
+    log("k3_db", batch=BATCH, db_ms=f"{dbt['ms']:.3f}", power_then_db_ms=f"{dbt['plain_ms']:.3f}",
+        k3_power_ms=f"{dbt['library_ms']:.3f}", db_runs="%.3f,%.3f" % dbt["runs"],
+        power_then_db_runs="%.3f,%.3f" % dbt["plain_runs"], k3_power_runs="%.3f,%.3f" % dbt["library_runs"],
+        db_extra_bytes=extra_bytes(db_k3), power_then_db_extra_bytes=extra_bytes(power_db))
     del wav, padded
     free()
-    return {**t, **bound, "max_abs_err": max_abs, "k1_ms": route["plain_ms"]}
+    return {**t, **bound, "max_abs_err": max_abs, "k1_ms": route["plain_ms"], "db_ms": dbt["ms"]}
 
 
 def phase_k2() -> dict:

@@ -1,10 +1,15 @@
-"""K3 on the card: the raw-input route against the padded route, bitwise.
+"""K3 on the card: the raw-input route against the padded route, and the dB
+instance against the power instance + ``power_to_db``, bitwise.
 
 ``ct_mel_unpadded`` on a CUDA tensor launches K3 on the raw rows, which
 reflects the edge frames' samples itself (librosa's center reflect pad
 folded into its frame addressing); ``ct_mel`` of ``center_pad``'s rows is
 the same kernel on rows padded beforehand. Everything after the load is
-the same code, so the two are held bitwise equal.
+the same code, so the two are held bitwise equal. ``ct_mel_db`` (the route
+of ``log_mel_spectrogram``) runs the same frame code into a shared-memory
+tile and ``power_to_db``'s steps in its epilogue, each rounded as torch's
+kernels round it, so it is held bitwise to ``power_to_db`` of
+``ct_mel_unpadded``'s power.
 
 Marked ``cuda``: without a card every test skips in its fixture. This file
 imports no JAX, which the card machine lacks; ``tests/conftest.py`` does,
@@ -16,7 +21,8 @@ so on the card run it without the conftest:
 import pytest
 import torch
 
-from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
+from audioanalysisdetector_tpu_torch.frontend.db import power_to_db
+from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig, log_mel_spectrogram, melspectrogram
 from audioanalysisdetector_tpu_torch.frontend.stft import center_pad
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import LAUNCH_COUNTERS, launch_counts, reset_launch_counts
@@ -116,3 +122,114 @@ def test_raw_route_refuses_grad(card):
     with pytest.raises(RuntimeError, match="no backward"):
         ctm.ct_mel_unpadded(y, MelConfig())
     assert set(launch_counts().values()) == {0}
+
+
+def _power_then_db(y: torch.Tensor, cfg: MelConfig, top_db) -> torch.Tensor:
+    """The power instance and ``power_to_db``: the dB route's yardstick, as
+    ``log_mel_spectrogram`` computed it before the dB instance."""
+    return power_to_db(ctm.ct_mel_unpadded(y, cfg).transpose(-1, -2), ref="max", top_db=top_db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch, n, n_mels, top_db",
+    [
+        (8192, 32000, 64, 80.0),  # the cell's call
+        (64, 16000, 64, 80.0),  # T = 32
+        (64, 64000, 64, 80.0),  # T = 126
+        (1, 32000, 64, 80.0),
+        (7, 32000, 64, 80.0),
+        (8193, 32000, 64, 80.0),
+        (16, 32000, 64, None),
+        (16, 32000, 64, 0.0),
+        (16, 32000, 64, 80.3),
+        (16, 32001, 64, 80.0),  # odd rows: the 4-byte-load instance
+        (16, 32000, 128, 80.0),  # 128 mels, T * n_mels = 8,064
+        (4, 95743, 64, 80.0),  # T = 187, the largest tile at 64 mels
+        (4, 1500, 64, 80.0),  # every frame reflects
+    ],
+)
+def test_db_route_is_bitwise_power_then_power_to_db(card, batch, n, n_mels, top_db):
+    cfg = MelConfig(n_mels=n_mels)
+    y = _wave((batch, n), batch + n, card)
+    assert ctm.db_refusals(y, cfg, top_db=top_db) == []
+    reset_launch_counts()
+    got = log_mel_spectrogram(y, cfg, top_db=top_db)
+    assert launch_counts() == {**_k3_launches(padded=0, raw=1), "ct_mel.db": 1}
+    want = _power_then_db(y, cfg, top_db)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (batch, n_mels, 1 + n // cfg.hop_length)
+    assert got.stride() == want.stride()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert torch.equal(ctm.ct_log_mel(y, cfg, top_db=top_db), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_db", [80.0, None, 0.0])
+def test_db_route_on_silence_and_planted_peaks(card, top_db):
+    """An all-zero utterance (Smax < amin: every value 0 dB), one of a
+    single loud sample, and ordinary ones beside them in one launch."""
+    cfg = MelConfig()
+    y = _wave((6, 32000), 11, card)
+    y[0] = 0.0
+    y[1] = 0.0
+    y[1, 16000] = 1.0
+    y[2] *= 1e-6
+    got = log_mel_spectrogram(y, cfg, top_db=top_db)
+    want = _power_then_db(y, cfg, top_db)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+def test_db_route_strides_are_todays(card):
+    """The model reads the features in the layout the power route gave them:
+    ``melspectrogram``'s transpose, and ``power_to_db``'s output of it."""
+    cfg = MelConfig()
+    y = _wave((8, 32000), 12, card)
+    got = log_mel_spectrogram(y, cfg)
+    assert got.stride() == power_to_db(melspectrogram(y, cfg), ref="max").stride() == (63 * 64, 1, 64)
+
+
+@pytest.mark.cuda
+def test_a_scorer_call_is_one_db_launch(card):
+    from audioanalysisdetector_tpu_torch.score.e2e import init_mel_cnn_bilstm, make_mel_cnn_bilstm_scorer
+
+    cfg = MelConfig()
+    score = make_mel_cnn_bilstm_scorer(init_mel_cnn_bilstm(cfg, 32000, device=card), cfg)
+    y = _wave((32, 32000), 13, card)
+    score(y)
+    reset_launch_counts()
+    score(y)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["ct_mel"] == counts["ct_mel.db"] == counts["ct_mel.reflect"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, n_mels", [(96000, 64), (32000, 256)])
+def test_a_tile_that_does_not_fit_takes_the_power_route(card, n, n_mels):
+    """T * n_mels past 12,016 (T = 188 at 64 mels; 256 mels at 2 s): the
+    power instance and ``power_to_db``, no dB launch."""
+    cfg = MelConfig(n_mels=n_mels)
+    y = _wave((3, n), 14, card)
+    assert ctm.db_refusals(y, cfg) == ["tile"]
+    reset_launch_counts()
+    got = log_mel_spectrogram(y, cfg)
+    assert launch_counts() == _k3_launches(padded=0, raw=1)
+    assert torch.equal(got, _power_then_db(y, cfg, 80.0))
+
+
+@pytest.mark.cuda
+def test_db_route_refuses_grad(card):
+    y = _wave((2, 32000), 15, card).requires_grad_()
+    assert ctm.db_refusals(y, MelConfig()) == ["grad"]
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        log_mel_spectrogram(y, MelConfig())
+    assert set(launch_counts().values()) == {0}
+    with torch.no_grad():
+        got = log_mel_spectrogram(y, MelConfig())
+    assert launch_counts()["ct_mel.db"] == 1
+    assert torch.equal(got, _power_then_db(y.detach(), MelConfig(), 80.0))

@@ -43,7 +43,8 @@ def _zeros() -> dict[str, int]:
 
 def test_the_ledger_keeps_every_counter_in_order():
     assert ops.LAUNCH_COUNTERS == (
-        "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "lstm_scan", "cqcc", "gmm_llr"
+        "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "cqcc",
+        "gmm_llr",
     )
     assert tuple(ops.launch_counts()) == ops.LAUNCH_COUNTERS
     counts = ops.launch_counts()
@@ -75,8 +76,9 @@ def test_launch_appends_the_stream_and_counts_each_named_counter_once(fake_card)
     entry = FakeEntry()
     ops.launch(entry, torch.zeros(3), "ct_mel", 7, 8.5, rows=3, counters=("ct_mel.reflect",))
     ops.launch(entry, torch.zeros(3), "wave_mel", 9, rows=3)
-    assert entry.calls == [(7, 8.5, STREAM), (9, STREAM)]
-    assert ops.launch_counts() == {**_zeros(), "ct_mel": 1, "ct_mel.reflect": 1, "wave_mel": 1}
+    ops.launch(entry, torch.zeros(3), "ct_mel", 10, rows=3, counters=("ct_mel.reflect", "ct_mel.db"))
+    assert entry.calls == [(7, 8.5, STREAM), (9, STREAM), (10, STREAM)]
+    assert ops.launch_counts() == {**_zeros(), "ct_mel": 2, "ct_mel.reflect": 2, "ct_mel.db": 1, "wave_mel": 1}
 
 
 @pytest.mark.parametrize("kernel", ["lstm_scan", "cqcc", "gmm_llr"])
