@@ -493,7 +493,10 @@ def cmd_score(args) -> int:
     64,600 samples at 16 kHz, a short clip repeated to fill them
     (``tile_pad``), and the bona fide logit as the score; ``--model
     wavlm-mhfa`` with WavLM-Large + MHFA and ``--model w2vbert-mhfa`` with
-    w2v-BERT 2.0 + MHFA the same way, on 256,000 samples."""
+    w2v-BERT 2.0 + MHFA the same way, on 256,000 samples; ``--model
+    whisper-mhfa`` with Whisper large-v3's encoder + MHFA on 480,000
+    samples (30 s), a short clip zero-padded and a long one trimmed, as the
+    published extractor does."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
@@ -508,7 +511,8 @@ def cmd_score(args) -> int:
             "(a JAX-saved payload) or <state_dict.pt> (torch.save; for "
             "--model xlsr-aasist the published LA_model.pth, for --model "
             "wavlm-mhfa the published WavLM-Large front end, for --model "
-            "w2vbert-mhfa the published w2v-BERT 2.0 front end), "
+            "w2vbert-mhfa the published w2v-BERT 2.0 front end, for --model "
+            "whisper-mhfa the published Whisper large-v3 model), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -517,7 +521,7 @@ def cmd_score(args) -> int:
     if not paths:
         print(f"no WAV files under {args.audio}", file=sys.stderr)
         return 1
-    if args.model in ("xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa"):
+    if args.model in ("xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa", "whisper-mhfa"):
         return _score_ssl(args, paths)
     mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
     model = init_mel_cnn_bilstm(
@@ -534,21 +538,24 @@ def cmd_score(args) -> int:
 
 
 def _score_ssl(args, paths: list[str]) -> int:
-    """``--model xlsr-aasist``, ``wavlm-mhfa`` or ``w2vbert-mhfa``: raw
-    16-kHz samples, tiled and cut to the model's input, one bona fide logit
-    a file. The two 16-s models take at most 32 clips a call: WavLM-MHFA's
-    first conv map alone is 105 MB a clip, w2v-BERT's attention mask 41 MB
-    a clip and layer."""
+    """``--model xlsr-aasist``, ``wavlm-mhfa``, ``w2vbert-mhfa`` or
+    ``whisper-mhfa``: raw 16-kHz samples, tiled (Whisper: zero-padded) and
+    cut to the model's input, one bona fide logit a file. The 16-s and 30-s
+    models take at most 32 clips a call: WavLM-MHFA's first conv map alone
+    is 105 MB a clip, w2v-BERT's attention mask 41 MB a clip and layer,
+    Whisper's 33 hidden states 253 MB a clip."""
     from audioanalysisdetector_tpu_torch.score import e2e
     from audioanalysisdetector_tpu_torch.score.streaming import score_paths
 
-    sr, n, init, make, most = {
+    sr, n, init, make, most, pad = {
         "xlsr-aasist": (e2e.XLSR_AASIST_SR, e2e.XLSR_AASIST_SAMPLES, e2e.init_xlsr_aasist,
-                        e2e.make_xlsr_aasist_scorer, args.batch_size),
+                        e2e.make_xlsr_aasist_scorer, args.batch_size, "tile"),
         "wavlm-mhfa": (e2e.WAVLM_MHFA_SR, e2e.WAVLM_MHFA_SAMPLES, e2e.init_wavlm_mhfa, e2e.make_wavlm_mhfa_scorer,
-                       32),
+                       32, "tile"),
         "w2vbert-mhfa": (e2e.W2VBERT_MHFA_SR, e2e.W2VBERT_MHFA_SAMPLES, e2e.init_w2vbert_mhfa,
-                         e2e.make_w2vbert_mhfa_scorer, 32),
+                         e2e.make_w2vbert_mhfa_scorer, 32, "tile"),
+        "whisper-mhfa": (e2e.WHISPER_MHFA_SR, e2e.WHISPER_MHFA_SAMPLES, e2e.init_whisper_mhfa,
+                         e2e.make_whisper_mhfa_scorer, 32, "zeros"),
     }[args.model]
     if args.sr != sr:
         print(f"score: --model {args.model} takes {sr} Hz audio, not --sr {args.sr}", file=sys.stderr)
@@ -556,7 +563,7 @@ def _score_ssl(args, paths: list[str]) -> int:
     model = init(checkpoint=args.checkpoint, device=args.device)
     kept, scores = score_paths(
         make(model), paths, device=args.device, seconds=n / sr, sr=sr,
-        batch_size=min(args.batch_size, most), pad="tile",
+        batch_size=min(args.batch_size, most), pad=pad,
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "bonafide_logit": float(s)}))
@@ -887,16 +894,20 @@ def build_parser() -> argparse.ArgumentParser:
             "kernel: ct_mel at parity, wave_mel at speech)",
         )
 
-    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA, w2v-BERT-MHFA) spoof scoring")
+    sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA, w2v-BERT-MHFA, "
+                        "Whisper-MHFA) spoof scoring")
     sp.add_argument("audio", help="WAV/FLAC directory or glob")
     mel_flags(sp)
     sp.add_argument(
-        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa"), default="cnn-bilstm",
+        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa", "whisper-mhfa"),
+        default="cnn-bilstm",
         help="cnn-bilstm: log-mel + CNN-BiLSTM, a spoof probability; "
         "xlsr-aasist: SSL-AASIST (XLS-R 300M + AASIST) on 64,600 raw "
         "samples; wavlm-mhfa: WavLM-Large + MHFA on 256,000 raw samples "
         "(16 s); w2vbert-mhfa: w2v-BERT 2.0 + MHFA on the same 16 s; "
-        "the three repeat short clips and give the bona fide logit "
+        "the three repeat short clips; whisper-mhfa: Whisper large-v3's "
+        "encoder + MHFA on 480,000 samples (30 s), short clips zero-padded; "
+        "the four give the bona fide logit "
         "(--seconds and the mel flags do not apply)",
     )
     sp.add_argument(

@@ -638,3 +638,39 @@ def w2vbert_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
             t = t.squeeze(-1)
         out[port] = t
     return out
+
+
+# huggingface.co/openai/whisper-large-v3 (transformers' ``WhisperEncoder``):
+# (published prefix, port prefix), first match wins
+_WHISPER_PREFIXES = (
+    ("conv1.", "conv1."),
+    ("conv2.", "conv2."),
+    ("embed_positions.weight", "positions"),
+    ("layers.{i}.self_attn.q_proj.", "layers.{i}.q."),
+    ("layers.{i}.self_attn.k_proj.", "layers.{i}.k."),
+    ("layers.{i}.self_attn.v_proj.", "layers.{i}.v."),
+    ("layers.{i}.self_attn.out_proj.", "layers.{i}.out."),
+    ("layers.{i}.self_attn_layer_norm.", "layers.{i}.attn_norm."),
+    ("layers.{i}.fc1.", "layers.{i}.fc1."),
+    ("layers.{i}.fc2.", "layers.{i}.fc2."),
+    ("layers.{i}.final_layer_norm.", "layers.{i}.ffn_norm."),
+    ("layer_norm.", "norm."),
+)
+
+
+def whisper_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The published Whisper large-v3 encoder (huggingface.co/openai/
+    whisper-large-v3 ``model.safetensors`` as a state dict: its keys under
+    ``model.encoder.`` in ``WhisperForConditionalGeneration``, under
+    ``encoder.`` in ``WhisperModel``, bare in ``WhisperEncoder``; the
+    decoder's and ``proj_out``'s tensors are not taken) ->
+    ``models.whisper.WhisperEncoder``'s, for ``WhisperMHFA.whisper``.
+
+    The tensors map by ``_WHISPER_PREFIXES``; ``embed_positions.weight`` is
+    the positions' table. A tensor of a module the port does not build
+    raises KeyError."""
+    for prefix in ("model.encoder.", "encoder."):
+        if any(k.startswith(prefix) for k in state):
+            state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+            break
+    return {_port_name(name, _WHISPER_PREFIXES, (), ""): t for name, t in state.items()}

@@ -13,7 +13,8 @@ hand-written Hopper kernel, chosen by ``mel_route`` from the configuration
 alone — ``ops/ct_mel.py::ct_mel`` (K3) where its factorization applies (the
 parity profile), ``ops/wave_mel.py::wave_mel`` (K1) everywhere else; a CPU
 tensor goes through the plain chain (frames @ DFT bases -> |.|^2 -> @
-mel_fb.T).
+mel_fb.T). ``whisper_log_mel`` is Whisper's normalised log-mel on the same
+route (K1 at Whisper's n_fft 400).
 """
 
 from __future__ import annotations
@@ -234,3 +235,17 @@ def log_mel_spectrogram(
     if not k3.db_refusals(y, cfg, ref=ref, top_db=top_db):
         return k3.ct_mel_db(y, cfg, top_db=top_db).transpose(-1, -2)
     return power_to_db(melspectrogram(y, cfg), ref=ref, top_db=top_db, utt_axes=2)
+
+
+def whisper_log_mel(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """Whisper's log-mel of ``(..., n)`` waveforms -> ``(..., n_mels, T - 1)``,
+    as transformers' ``WhisperFeatureExtractor`` computes it: the mel power
+    (``melspectrogram``: K1 on the card at n_fft 400), its last frame
+    dropped, ``log10(max(x, 1e-10))`` clipped from below at the
+    utterance's own max - 8, then ``(x + 4) / 4``. That log10 and clip are
+    ``power_to_db(ref=1, amin=1e-10, top_db=80) / 10``, the one home of the
+    per-utterance dB policy. The max is each utterance's, as the published
+    extractor takes it row by row (openai's package takes one over the
+    batch, so a clip's features there depend on its batch)."""
+    log_spec = power_to_db(melspectrogram(y, cfg)[..., :-1], ref=1.0, amin=1e-10, top_db=80.0, utt_axes=2) / 10.0
+    return (log_spec + 4.0) / 4.0

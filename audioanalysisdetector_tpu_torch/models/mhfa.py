@@ -18,7 +18,8 @@ every hidden state ``s_0 .. s_L`` of a self-supervised front end:
 ``SSLMHFA`` is a front end with MHFA over its ``layers + 1`` hidden states:
 ``WavLMMHFA`` over WavLM-Large (``models/wav2vec2.py::WavLM``),
 ``W2VBertMHFA`` over w2v-BERT 2.0 (``models/w2v_bert.py::W2VBert``), 25
-states each. The sizes 64 / 128 / 256 and the two-way output layer are the
+states each; ``WhisperMHFA`` over Whisper large-v3's encoder
+(``models/whisper.py::WhisperEncoder``), 33 states of 1280. The sizes 64 / 128 / 256 and the two-way output layer are the
 published code's defaults carried to this task; the pairings are this
 port's.
 """
@@ -30,6 +31,7 @@ from torch import nn
 
 from audioanalysisdetector_tpu_torch.models.w2v_bert import W2V_BERT_2, W2VBert, W2VBertConfig
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import WAVLM_LARGE, WavLM, WavLMConfig
+from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3, WhisperConfig, WhisperEncoder
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
@@ -96,3 +98,13 @@ class W2VBertMHFA(SSLMHFA):
     def __init__(self, cfg: W2VBertConfig = W2V_BERT_2, heads: int = 64, compression: int = 128,
                  outputs: int = 256):
         super().__init__(W2VBert(cfg), heads, compression, outputs)
+
+
+class WhisperMHFA(SSLMHFA):
+    """Whisper large-v3's encoder, then MHFA (``whisper.*``, ``mhfa.*``)."""
+
+    front_end_name = "whisper"
+
+    def __init__(self, cfg: WhisperConfig = WHISPER_LARGE_V3, heads: int = 64, compression: int = 128,
+                 outputs: int = 256):
+        super().__init__(WhisperEncoder(cfg), heads, compression, outputs)

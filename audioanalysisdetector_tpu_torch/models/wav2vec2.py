@@ -116,8 +116,9 @@ def split_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-    """The one attention call of the SSL front ends: ``softmax(q k^T /
-    sqrt(d) + mask) v`` over ``(B, H, T, d)`` heads (``mask`` a float
+    """The one attention call of the SSL front ends and of Whisper's
+    encoder: ``softmax(q k^T / sqrt(d) + mask) v`` over ``(B, H, T, d)``
+    heads (``mask`` a float
     ``(B, H, T, T)`` added to the scaled logits, or None), merged back to
     ``(B, T, H d)``, under the ``ssl.attend`` span. ``q`` is scaled by
     ``d ** -0.5`` as fairseq scales it."""
@@ -128,7 +129,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
 
 
 class EncoderLayer(nn.Module):
-    """One pre-LayerNorm transformer layer over ``(B, T, hidden)``."""
+    """One pre-LayerNorm transformer layer over ``(B, T, hidden)``. Whisper's
+    layer (``models/whisper.py::WhisperLayer``) is this one with no bias on
+    ``k``."""
+
+    k_bias = True
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
@@ -136,7 +141,7 @@ class EncoderLayer(nn.Module):
         self.heads = cfg.heads
         self.attn_norm = nn.LayerNorm(d, eps=cfg.eps)
         self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d)
+        self.k = nn.Linear(d, d, bias=self.k_bias)
         self.v = nn.Linear(d, d)
         self.out = nn.Linear(d, d)
         self.ffn_norm = nn.LayerNorm(d, eps=cfg.eps)

@@ -5,9 +5,11 @@ mel kernel on CUDA) -> CNN-BiLSTM hybrid -> spoof probability, and the
 flagship CQCC -> GMM ⊕ BiLSTM fused scorer, with nothing on the host
 between the waveform upload and the ``(B,)`` scores. The port alone also
 scores with SSL-AASIST (``models/aasist.py``): 64,600 raw samples -> XLS-R
--> AASIST -> the bona fide logit; and with WavLM-Large + MHFA or w2v-BERT
-2.0 + MHFA (``models/mhfa.py``): whole 16-s clips, 256,000 samples -> the
-front end's 25 hidden states -> MHFA -> the bona fide logit.
+-> AASIST -> the bona fide logit; with WavLM-Large + MHFA or w2v-BERT 2.0 +
+MHFA (``models/mhfa.py``): whole 16-s clips, 256,000 samples -> the front
+end's 25 hidden states -> MHFA -> the bona fide logit; and with Whisper
+large-v3's encoder + MHFA: 30-s windows, 480,000 samples -> K1's log-mel ->
+the encoder's 33 hidden states -> MHFA -> the bona fide logit.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from audioanalysisdetector_tpu_torch.frontend.stft import n_frames_for
 from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
-from audioanalysisdetector_tpu_torch.models.mhfa import SSLMHFA, W2VBertMHFA, WavLMMHFA
+from audioanalysisdetector_tpu_torch.models.mhfa import SSLMHFA, W2VBertMHFA, WavLMMHFA, WhisperMHFA
 from audioanalysisdetector_tpu_torch.models.w2v_bert import W2VBert
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, WavLM
+from audioanalysisdetector_tpu_torch.models.whisper import WhisperEncoder
 from audioanalysisdetector_tpu_torch.score.fused import fused_scores, ieee_fp32
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
@@ -40,6 +43,11 @@ WAVLM_MHFA_SAMPLES = 256000
 # w2v-BERT 2.0 + MHFA's input: the same 16.0-s clips (T = 799 feature rows)
 W2VBERT_MHFA_SR = 16000
 W2VBERT_MHFA_SAMPLES = 256000
+# Whisper large-v3 + MHFA's input: one 30-s window, 480,000 samples at 16
+# kHz (3,000 mel frames, 1,500 positions), as the published extractor pads
+# or trims every clip
+WHISPER_MHFA_SR = 16000
+WHISPER_MHFA_SAMPLES = 480000
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -401,6 +409,63 @@ def make_w2vbert_mhfa_scorer(model: W2VBertMHFA) -> Callable[[torch.Tensor], tor
     w2vbert = model.w2vbert
     return _make_mhfa_scorer(model, ("w2vbert.fbank", w2vbert.fbank),
                              ("w2vbert.encoder", lambda feats: w2vbert.hidden_states(w2vbert.project(feats))))
+
+
+def _init_whisper(whisper: WhisperEncoder, generator: torch.Generator) -> None:
+    """transformers' ``WhisperPreTrainedModel._init_weights`` past torch's
+    defaults, drawn from ``generator``: every conv and linear layer of the
+    encoder N(0, 0.02) with zero biases; norms weight 1, bias 0; the
+    positions keep their sinusoids."""
+    with torch.no_grad():
+        for mod in whisper.modules():
+            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Linear)):
+                mod.weight.normal_(0.0, 0.02, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+
+def init_whisper_mhfa(
+    *,
+    checkpoint: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> WhisperMHFA:
+    """Whisper large-v3's encoder + MHFA at the published widths in eval
+    mode on ``device``.
+
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` at the
+    published initialisation scales: transformers' for the encoder
+    (``_init_whisper``), torch's defaults for MHFA's linear layers, MHFA's
+    layer weights zero (a uniform mix). With ``checkpoint``: the published
+    encoder (huggingface.co/openai/whisper-large-v3 ``model.safetensors``
+    saved as a ``torch.save`` state dict, the decoder's tensors not taken;
+    converted by ``convert.whisper_to_port``) replaces the encoder and keeps
+    the seeded back end; a ``torch.save`` state dict of this model replaces
+    every tensor. Either must fit exactly."""
+    from audioanalysisdetector_tpu_torch.convert import whisper_to_port
+
+    model = WhisperMHFA()
+    generator = torch.Generator().manual_seed(seed)
+    _init_uniform(model.mhfa, generator)
+    _init_whisper(model.whisper, generator)
+    if checkpoint:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "whisper.conv1.weight" in state:
+            model.load_state_dict(state)
+        else:
+            model.whisper.load_state_dict(whisper_to_port(state))
+    return model.to(device).eval()
+
+
+def make_whisper_mhfa_scorer(model: WhisperMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, 480000) -> (B,)`` bona fide logits (``_make_mhfa_scorer``).
+    Spans: ``whisper.log_mel`` (the center pad, one K1 launch on the card,
+    the normalisation) and ``whisper.encoder`` (``whisper.conv_stem``, the
+    positions and the 32 layers) inside ``score.frontend``, ``mhfa.pool``
+    inside ``score.model``."""
+    whisper = model.whisper
+    return _make_mhfa_scorer(model, ("whisper.log_mel", whisper.features),
+                             ("whisper.encoder", whisper.hidden_states))
 
 
 def make_e2e_train_step_inputs(wav: torch.Tensor, cqcc_cfg: CQCCConfig) -> torch.Tensor:

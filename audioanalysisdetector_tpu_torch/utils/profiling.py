@@ -46,7 +46,7 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   completions divide every ``span.*`` metric, and its device operations
   are the launches a call.
 - ``score.frontend``: the scorer's features (log-mel; CQCC, transpose and
-  scale; XLS-R; WavLM's or w2v-BERT's 25 hidden states):
+  scale; XLS-R; WavLM's or w2v-BERT's 25 hidden states; Whisper's 33):
   ``span.frontend_ms.score``.
 - ``score.model``: the scorer's model (CNN-BiLSTM; ``fused_scores``;
   AASIST; MHFA): ``span.model_ms.score``.
@@ -67,9 +67,10 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   position bias (``models/wav2vec2.py::GatedEncoderLayer``), 24 a call
   inside ``wavlm.encoder``: ``span.wavlm_bias_ms.score``.
 - ``ssl.attend``: ``models/wav2vec2.py::attend``, the SDPA call of the
-  three SSL front ends (torch's copy of a float mask into 800-long rows,
-  its fills, the attention kernel, the merge transpose), 24 a call inside
-  ``score.frontend``: ``span.attention_ms.score``.
+  three SSL front ends and of Whisper's encoder (torch's copy of a float
+  mask into 800-long rows, its fills, the attention kernel, the merge
+  transpose), 24 a call (32 in Whisper's) inside ``score.frontend``:
+  ``span.attention_ms.score``.
 - ``w2vbert.fbank``, ``w2vbert.encoder``: w2v-BERT-MHFA's frontend in two
   (the Kaldi filterbank, ``frontend/fbank.py``; the projection and the 24
   Conformer layers), inside ``score.frontend``: each half's device ms a
@@ -82,6 +83,14 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   causal depthwise conv, LayerNorm, swish, pointwise;
   ``models/w2v_bert.py::ConvModule``), 24 a call inside
   ``w2vbert.encoder``: ``span.w2vbert_conv_ms.score``.
+- ``whisper.log_mel``, ``whisper.encoder``: Whisper-MHFA's frontend in
+  two (the center pad, K1 and the log-mel's normalisation,
+  ``frontend/mel.py::whisper_log_mel``; the conv stem, the positions and
+  the 32 layers), inside ``score.frontend``, once a call:
+  ``whisper.logmel_ms.score`` reads the first.
+- ``whisper.conv_stem``: the two convs of Whisper's stem with their GELUs
+  (``models/whisper.py::WhisperEncoder.conv_stem``), once a call inside
+  ``whisper.encoder``: ``whisper.stem_ms.score``.
 - ``mhfa.pool``: MHFA's layer mixes, compressions and attentive pooling
   (``models/mhfa.py``), inside ``score.model``: the pooling's device ms a
   call (``harness/spans.py::per_call``).

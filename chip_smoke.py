@@ -20,8 +20,10 @@ each print their lines:
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
    whose rows are not 16-byte aligned), at n_fft 400 / hop 160 (the 25 ms
    / 10 ms speech framing, a sample tail past the kernel's 32-sample
-   stages), at n_fft 64 (fewer stages than the ring is deep) and with 128
-   mels, mel power and dB; then the configurations K1 took up last (power
+   stages), at n_fft 64 (fewer stages than the ring is deep), with 128
+   mels, and at Whisper large-v3's log-mel (n_fft 400, 128 Slaney mels to
+   8 kHz) on 16 30-s rows, whole and as 7-s clips zero-padded, mel power
+   and dB; then the configurations K1 took up last (power
    1, a bfloat16 waveform, also off 16-byte alignment, and 256 mels in two
    filter groups), each through ``melspectrogram``'s route too; then the
    kernel, plain and library times from CUDA events, in turns, beside the
@@ -83,6 +85,14 @@ each print their lines:
    card and on the CPU. The path reaches no TPU kernel (XLA computed it in
    the JAX package): K5 for the CQCC, K4 for the recurrences, K6 for the
    GMMs, cuBLAS;
+9b. whisper: Whisper large-v3's log-mel (``whisper_log_mel``: K1, then
+    the published clip at each row's own max - 8) of 16 30-s rows, whole,
+    as 7-s clips zero-padded, and silence, at mixed levels, against the
+    plain chain on the CPU, one ``wave_mel`` launch; a row alone reads as
+    in the batch, and a clip at the batch's max would miss by far more than
+    the bound; then one ``make_whisper_mhfa_scorer`` call (the encoder and
+    MHFA at the published widths) on those rows: exactly one K1 launch and
+    no other hand-written kernel, ms per call and peak memory;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -186,6 +196,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -229,6 +240,7 @@ from audioanalysisdetector_tpu_torch.frontend.mel import (
     log_mel_spectrogram,
     mel_route,
     melspectrogram,
+    whisper_log_mel,
 )
 from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import (
@@ -263,6 +275,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
 from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
+from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 from audioanalysisdetector_tpu_torch.parallel.sharded_gmm import make_sharded_masked_llr
@@ -273,9 +286,12 @@ from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
+    WHISPER_MHFA_SAMPLES,
     init_mel_cnn_bilstm,
+    init_whisper_mhfa,
     make_cqcc_fused_scorer,
     make_mel_cnn_bilstm_scorer,
+    make_whisper_mhfa_scorer,
 )
 from audioanalysisdetector_tpu_torch.score.fused import arm_scores, make_fused_scorer, padding_mask
 from audioanalysisdetector_tpu_torch.train import (
@@ -312,13 +328,21 @@ REL_TOL = 1e-4
 # log-mel, kernel vs plain, in dB: a relative power error e moves dB by
 # 4.3 e, and top_db=80 keeps values within 80 dB of the per-utterance max.
 DB_TOL = 1e-3
-# the same past 128 mels: at n_fft 512 the 256 Slaney filters below ~1 kHz
-# are narrower than the 31.25 Hz bin spacing, so many hold one bin at an
-# edge weight and their power is that bin's alone, down to the -80 dB
-# floor, with no neighbour to average its relative DFT error (the CPU
-# emulation of the kernel reads 9.2e-4 dB at -70.6 dB on 16 rows; an H100
-# 7.7e-3 dB on 8192 rows, at 2.9e-6 of the max power)
+# the same where Slaney filters are narrower than the bin spacing: past 128
+# mels at n_fft 512 (256 filters below ~1 kHz against 31.25-Hz bins), and
+# Whisper's 128 mels to 8 kHz at n_fft 400 (23-Hz filter spacing below 1
+# kHz against 40-Hz bins). Many filters there hold one bin at an edge
+# weight and their power is that bin's alone, down to the -80 dB floor,
+# with no neighbour to average its relative DFT error (the CPU emulation of
+# the kernel reads 9.2e-4 dB at -70.6 dB on 16 rows; an H100 7.7e-3 dB on
+# 8192 rows at 256 mels, at 2.9e-6 of the max power, and 3.98e-3 dB on 16
+# of Whisper's 30-s rows at a relative power error of 1.6e-6)
 DB_TOL_MANY_MELS = 3e-2
+# Whisper's log-mel, card vs the plain chain on the CPU, in its own units
+# ((log10 + 4) / 4, so 40 dB a unit): DB_TOL_MANY_MELS, as its filters are
+# narrower than its bins; a clip at the batch's max - 8 moves the quieter
+# rows' padded frames by 0.1 or more
+WHISPER_LOGMEL_TOL = DB_TOL_MANY_MELS / 40.0
 # K2 in bf16 against its f32 result: the median relative error of the mel
 # power (the bound of the JAX package's tests/test_ops_pallas.py:54)
 BF16_MEDIAN_TOL = 0.02
@@ -652,13 +676,17 @@ K1_WIDE = ("power1", "bf16", "mels256")  # beyond power 2, float32 and 128 mels
 
 
 def phase_k1() -> dict:
-    """K1 vs plain in both profiles, at n_fft 400 and 64 and with 128 mels;
-    returns the numbers (and times) of the two profiles."""
+    """K1 vs plain in both profiles, at n_fft 400 and 64, with 128 mels and
+    at Whisper's shape; returns the numbers (and times) of the two profiles."""
     results = {}
     configs = [(p, MelConfig.for_profile(p, SR), K1_CASES) for p in PROFILES]
     configs.append(("n_fft400", MelConfig(sr=SR, n_fft=400, hop_length=160),
                     (("random", 64, N_SAMPLES), ("length32001", 13, 32001))))
     configs.append(("mels128", MelConfig.for_speech(SR, n_mels=128), (("ragged", 13, N_SAMPLES),)))
+    # Whisper large-v3's log-mel (n_fft 400, 128 Slaney mels to 8 kHz) at
+    # the whisper-mhfa cell's shape: 16 30-s windows (3,001 frames)
+    configs.append(("whisper", WHISPER_LARGE_V3.mel,
+                    (("random", 16, WHISPER_MHFA_SAMPLES), ("padded7s", 16, WHISPER_MHFA_SAMPLES))))
     # fewer 32-sample stages than the ring is deep
     configs.append(("n_fft64", MelConfig(sr=SR, n_fft=64, hop_length=32, n_mels=16),
                     (("ragged", 13, N_SAMPLES),)))
@@ -674,6 +702,8 @@ def phase_k1() -> dict:
         for case, batch, n in cases:
             T = n_frames_for(n, cfg.hop_length, cfg.n_fft, cfg.center)
             wav = waves(batch, 1, n) if case != "silence" else torch.zeros((batch, n), device=DEVICE)
+            if case == "padded7s":  # 7-s clips zero-padded to the window, as Whisper's extractor pads
+                wav[:, 7 * SR:] = 0.0
             wav = wav.to(dtype)
             padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
             got = wm.wave_mel(padded, cfg, n_frames=T)
@@ -689,7 +719,7 @@ def phase_k1() -> dict:
             max_rel, max_db = max(max_rel, rel), max(max_db, db)
             log("k1", profile=profile, case=case, batch=batch, n=n,
                 rel_err=f"{rel:.3e}", db_err=f"{db:.3e}")
-            db_tol = DB_TOL if cfg.n_mels <= 128 else DB_TOL_MANY_MELS
+            db_tol = DB_TOL if cfg.n_mels <= 128 and profile != "whisper" else DB_TOL_MANY_MELS
             if rel > REL_TOL or db > db_tol:
                 raise AssertionError(
                     f"K1 {profile}/{case}: kernel disagrees with plain (rel {rel:.3e} > "
@@ -1362,6 +1392,76 @@ def fused_models(device: str, dim: int = 19):
     g = from_numpy(random_diag_gmm(1, 128, dim), device=device)
     s = from_numpy(random_diag_gmm(2, 128, dim), device=device)
     return model.to(device).eval(), g, s
+
+
+def whisper_rows(seed: int) -> torch.Tensor:
+    """16 30-s rows on the CPU, the whisper-mhfa cell's recipe (3 tones over
+    60-7000 Hz, a noise share of 0.05-1, a peak level of 0.02-0.5) with the
+    windows Whisper's clip normalisation acts on: rows 0-7 whole, rows 8-14
+    7-s clips zero-padded to 30 s, as ``cli score`` pads them, and row 15
+    silence. The levels alternate, so each row's max differs from the
+    batch's."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(WHISPER_MHFA_SAMPLES, dtype=torch.float64) / SR
+    rows = torch.zeros((16, WHISPER_MHFA_SAMPLES))
+    levels = torch.logspace(math.log10(0.02), math.log10(0.5), 15, dtype=torch.float64)[torch.randperm(15, generator=g)]
+    for i in range(15):
+        freqs = 60.0 + 6940.0 * torch.rand((3, 1), generator=g, dtype=torch.float64)
+        tone = torch.sin(2 * math.pi * freqs * t).mean(0)
+        share = 0.05 + 0.95 * float(torch.rand((), generator=g))
+        x = (1 - share) * tone + share * torch.randn(WHISPER_MHFA_SAMPLES, generator=g, dtype=torch.float64)
+        rows[i] = (levels[i] * x / x.abs().max()).float()
+    rows[8:15, 7 * SR:] = 0.0
+    return rows
+
+
+def phase_whisper() -> dict:
+    """Whisper large-v3 + MHFA's front end and scorer on the card: the
+    log-mel of a mixed batch (``whisper_rows``) against the plain chain on
+    the CPU, each row's clip its own (a row scored alone reads as in the
+    batch; a batch-wide max would miss by far more than the bound), one
+    ``wave_mel`` launch a log-mel; then one ``make_whisper_mhfa_scorer``
+    call at the published widths on the same 16 rows, which launches K1
+    exactly once and no other hand-written kernel. Returns the launches."""
+    cfg = WHISPER_LARGE_V3.mel
+    cpu_wav = whisper_rows(29)
+    wav = cpu_wav.to(DEVICE)
+    with torch.inference_mode():
+        got, counts = run_counted(lambda: whisper_log_mel(wav, cfg))
+        if counts["wave_mel"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"whisper_log_mel: launches {counts}, want one wave_mel")
+        want = whisper_log_mel(cpu_wav, cfg)
+        err = float((got.cpu() - want).abs().max())
+        alone = max(float((whisper_log_mel(wav[i:i + 1], cfg)[0] - got[i]).abs().max()) for i in (3, 9, 15))
+        power = melspectrogram(wav, cfg)[..., :-1]
+        batch_max = (power_to_db(power, ref=1.0, amin=1e-10, top_db=80.0, utt_axes=3) / 10.0 + 4.0) / 4.0
+        fault = float((batch_max.cpu() - want).abs().max())
+        clipped = float((want[8:15] == want[8:15].amin(dim=(-2, -1), keepdim=True)).float().mean())
+    log("whisper", part="log_mel", rows=16, err=f"{err:.3e}", alone_err=f"{alone:.3e}",
+        batch_max_err=f"{fault:.3e}", padded_rows_at_clip=f"{clipped:.3f}", launches=counts["wave_mel"])
+    if err > WHISPER_LOGMEL_TOL or alone > WHISPER_LOGMEL_TOL:
+        raise AssertionError(f"whisper_log_mel: card vs CPU {err:.3e}, a row alone {alone:.3e} "
+                             f"> {WHISPER_LOGMEL_TOL}")
+    if fault < 100 * WHISPER_LOGMEL_TOL:
+        raise AssertionError(f"whisper_log_mel: a batch-wide clip reads {fault:.3e}, too near the bound to be seen")
+    del got, want, power, batch_max
+    free()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = init_whisper_mhfa(seed=0, device=DEVICE)
+    score = make_whisper_mhfa_scorer(model)
+    score(wav)  # warm: cuBLAS and the memory-efficient attention pick their kernels
+    scores, counts = run_counted(lambda: score(wav))
+    if counts["wave_mel"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"make_whisper_mhfa_scorer: launches {counts}, want one wave_mel")
+    if scores.shape != (16,) or not torch.isfinite(scores).all():
+        raise AssertionError(f"make_whisper_mhfa_scorer: bad scores {scores}")
+    ms = cuda_ms(lambda: score(wav), 3)
+    log("whisper", part="scorer", batch=16, ms_per_call=f"{ms:.1f}", utt_per_s=f"{16e3 / ms:.2f}",
+        launches=counts["wave_mel"], peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del model, score, wav, scores
+    free()
+    return {"wave_mel": 2}
 
 
 def phase_fused() -> dict:
@@ -3213,6 +3313,7 @@ def main() -> int:
     launches["lstm_scan"] += fused["lstm_scan"]
     launches["cqcc"] += fused["cqcc"]
     launches["gmm_llr"] += fused["gmm_llr"]
+    launches["wave_mel"] += timed_phase(phase_whisper)["wave_mel"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
