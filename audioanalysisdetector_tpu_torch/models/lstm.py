@@ -20,12 +20,12 @@ the CPU and 2.11 on the card).
 
 ``BiLSTM``'s scans go to the hand-written recurrence K4
 (``ops/lstm_scan.py``) in place of cuDNN where ``lstm_scan.takes`` holds of
-its input: a fixed-length float32 batch on the card, hidden 128, and no
-backward to come (inference: the fused scorer's classifier). The full
-output is then one K4 launch for both directions, ``last_only``'s forward
-scan one launch for the forward direction alone. Every other input
-(training, XAI's gradients, ragged rows, the mel model's hidden 32, other
-dtypes, the CPU) keeps the paths above.
+its input: a fixed-length float32 batch on the card, hidden 128 or 32, and
+no backward to come (inference: the fused scorer's classifier, the mel
+model). The full output is then one K4 launch for both directions,
+``last_only``'s forward scan one launch for the forward direction alone.
+Every other input (training, XAI's gradients, ragged rows, other hidden
+sizes and dtypes, the CPU) keeps the paths above.
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@
   bf16 operands (the K1 CUDA core, templated on the element type).
 - ``ct_mel``       K3: mel power through a 64 x 32 Cooley-Tukey DFT of 2048
   (the parity mel step).
-- ``lstm_scan``    K4: the inference LSTM recurrence (hidden 128, fp32) of
-  ``models/lstm.py::BiLSTM``, a layer's directions in one launch.
+- ``lstm_scan``    K4: the inference LSTM recurrence (fp32) of
+  ``models/lstm.py::BiLSTM``, a layer's directions in one launch: one
+  kernel for hidden 128 (the fused scorer's classifier), another for
+  hidden 32 (the mel model).
 - ``cqcc``         K5: the CQCC of raw waveforms (CQT, dB, regrid, log,
   DCT) in one launch; ``frontend/cqcc.py::cqcc`` routes to it, and its
   plain chain is K5's plain version.
@@ -22,9 +24,11 @@ refuses an input that needs a backward, calls the C entry point that
 ``_build.entry_point`` loaded on the current stream, and counts the launch
 in the ledger. ``launch_counts`` and ``reset_launch_counts`` read and zero
 it: each kernel's launches, ``ct_mel.reflect``, K3's launches on a raw
-waveform (the center reflect pad folded into its frame addressing), and
+waveform (the center reflect pad folded into its frame addressing),
 ``ct_mel.db``, K3's launches that write the log-mel in dB (``power_to_db``
-in its epilogue). A new kernel adds its name to ``LAUNCH_COUNTERS``.
+in its epilogue), and ``lstm_scan.h32``, K4's hidden-32 kernel (its
+hidden-128 kernel counts on ``lstm_scan``). A new kernel adds its name to
+``LAUNCH_COUNTERS``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import threading
 import torch
 
 LAUNCH_COUNTERS = (
-    "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "cqcc", "gmm_llr"
+    "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "lstm_scan.h32",
+    "cqcc", "gmm_llr",
 )
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads

@@ -1,21 +1,24 @@
-"""The LSTM recurrence of an inference scan, hidden 128, fp32: the hand-written Hopper kernel (K4).
+"""The LSTM recurrence of an inference scan, hidden 32 or 128, fp32: the hand-written Hopper kernels (K4).
 
-The JAX package has no Pallas LSTM (XLA runs its scan); this kernel
-replaces a library call, cuDNN's persistent LSTM under ``nn.LSTM`` /
+The JAX package has no Pallas LSTM (XLA runs its scan); these kernels
+replace a library call, cuDNN's persistent LSTM under ``nn.LSTM`` /
 ``torch._VF.lstm``, where ``models/lstm.py::BiLSTM`` can observe that no
-backward will be asked of it (``takes``). Its input is the input gates
+backward will be asked of it (``takes``). Their input is the input gates
 ``xg = x W_ih^T + b_ih + b_hh`` of every step (``input_gates``: one product
-over the directions' stacked ``W_ih``, left to cuBLAS); the kernel runs all
+over the directions' stacked ``W_ih``, left to cuBLAS); a kernel runs all
 T steps of the ``h W_hh^T`` recurrence and the cell, one launch for all the
 given directions (the second runs backward in time), and writes either every
-step's h into its direction's half of ``(B, T, n_dirs * 128)`` or only the
-last step's, ``(B, n_dirs * 128)``. Design and bound: the note in
-``ops/csrc/lstm_scan.cu``.
+step's h into its direction's half of ``(B, T, n_dirs * H)`` or only the
+last step's, ``(B, n_dirs * H)``. H, read off ``W_hh``'s shape, picks the
+kernel (``KERNELS``): hidden 128 (the fused scorer's classifier) is
+``ops/csrc/lstm_scan.cu``, W_hh in the registers of a 2-CTA cluster;
+hidden 32 (the mel model's ``BiLSTM(64, 32)``) is ``ops/csrc/lstm_scan_h32.cu``,
+a warp a set of rows with a lane a unit. Design and bound: each source's note.
 
 ``lstm_scan`` launches the kernel on a CUDA tensor, under the ``lstm.scan``
-span, and runs ``lstm_scan_reference`` (a step loop with the kernel's
-arithmetic) on a CPU tensor. There is no fallback: a failed build or a
-refused launch raises.
+span, counted as ``lstm_scan`` (hidden 128) or ``lstm_scan.h32``, and runs
+``lstm_scan_reference`` (a step loop with the kernels' arithmetic, any H) on
+a CPU tensor. There is no fallback: a failed build or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -28,8 +31,12 @@ from torch import nn
 from audioanalysisdetector_tpu_torch.ops import _build, launch, on_card, refuse_grad
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
-HIDDEN = 128  # the one hidden size the kernel is built for
-# lstm_scan_launch(xg, sxb, sxt, w0, w1, out, sob, sot, n_rows, T, n_dirs, last_only, stream)
+# hidden size -> (source under ops/csrc, C entry point, launch counter)
+KERNELS = {
+    32: ("lstm_scan_h32", "lstm_scan_h32_launch", "lstm_scan.h32"),
+    128: ("lstm_scan", "lstm_scan_launch", "lstm_scan"),
+}
+# each entry point: (xg, sxb, sxt, w0, w1, out, sob, sot, n_rows, T, n_dirs, last_only, stream)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -38,10 +45,11 @@ _ARGTYPES = (
 
 
 def refusals(x: torch.Tensor, lstm: nn.LSTM, lengths: torch.Tensor | None = None) -> list[str]:
-    """Why the kernel cannot run ``lstm`` over ``x`` in place of cuDNN, each
-    reason by name, or an empty list: it takes a fixed-length ``(B, T, I)``
-    float32 batch on the card, hidden 128, and no backward (autograd would
-    need one when grad mode is on and ``x`` or a parameter requires grad)."""
+    """Why no kernel can run ``lstm`` over ``x`` in place of cuDNN, each
+    reason by name, or an empty list: a kernel takes a fixed-length
+    ``(B, T, I)`` float32 batch on the card, a hidden size in ``KERNELS``,
+    and no backward (autograd would need one when grad mode is on and ``x``
+    or a parameter requires grad)."""
     why = []
     if not x.is_cuda:
         why.append("device")
@@ -51,7 +59,7 @@ def refusals(x: torch.Tensor, lstm: nn.LSTM, lengths: torch.Tensor | None = None
         why.append("shape")
     if lengths is not None:
         why.append("lengths")
-    if lstm.hidden_size != HIDDEN:
+    if lstm.hidden_size not in KERNELS:
         why.append("hidden")
     if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in lstm.parameters())):
         why.append("grad")
@@ -64,7 +72,7 @@ def takes(x: torch.Tensor, lstm: nn.LSTM, lengths: torch.Tensor | None = None) -
 
 
 def input_gates(x: torch.Tensor, lstm: nn.LSTM, suffixes: tuple[str, ...]) -> torch.Tensor:
-    """``(B, T, I)`` -> ``(B, T, 512 n)``: each direction's ``x W_ih^T + b_ih
+    """``(B, T, I)`` -> ``(B, T, 4 H n)``: each direction's ``x W_ih^T + b_ih
     + b_hh`` side by side, for the directions of ``lstm`` named by their
     parameter suffixes (``""`` forward, ``"_reverse"`` backward), in one
     product over their stacked ``W_ih``."""
@@ -74,31 +82,35 @@ def input_gates(x: torch.Tensor, lstm: nn.LSTM, suffixes: tuple[str, ...]) -> to
     return torch.addmm(b, x.reshape(B * T, I), w.t()).view(B, T, -1)
 
 
-def _check(xg: torch.Tensor, w_hh: tuple[torch.Tensor, ...]) -> None:
+def _check(xg: torch.Tensor, w_hh: tuple[torch.Tensor, ...]) -> int:
+    """The hidden size H, read off the first ``W_hh``, once the gates and
+    every ``W_hh`` are found to fit it."""
     if not 1 <= len(w_hh) <= 2:
         raise ValueError(f"lstm_scan runs one or two directions, got {len(w_hh)}")
-    if xg.dim() != 3 or xg.shape[1] < 1 or xg.shape[2] != 4 * HIDDEN * len(w_hh):
-        raise ValueError(f"expected (B, T >= 1, {4 * HIDDEN * len(w_hh)}) input gates, got {tuple(xg.shape)}")
+    H = w_hh[0].shape[-1]
+    if xg.dim() != 3 or xg.shape[1] < 1 or xg.shape[2] != 4 * H * len(w_hh):
+        raise ValueError(f"expected (B, T >= 1, {4 * H * len(w_hh)}) input gates, got {tuple(xg.shape)}")
     for w in w_hh:
-        if w.shape != (4 * HIDDEN, HIDDEN) or w.dtype != xg.dtype or w.device != xg.device:
-            raise ValueError(f"expected ({4 * HIDDEN}, {HIDDEN}) W_hh of the gates' dtype and device, "
+        if w.shape != (4 * H, H) or w.dtype != xg.dtype or w.device != xg.device:
+            raise ValueError(f"expected ({4 * H}, {H}) W_hh of the gates' dtype and device, "
                              f"got {tuple(w.shape)} {w.dtype} on {w.device}")
+    return H
 
 
 def lstm_scan_reference(
     xg: torch.Tensor, w_hh: tuple[torch.Tensor, ...], *, last_only: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: for each direction d (the second
-    backward in time), from h = c = 0, ``a = xg[:, p, 512 d :] + h W_hh^T``,
+    backward in time), from h = c = 0, ``a = xg[:, p, 4 H d :] + h W_hh^T``,
     ``c = sigmoid(a_f) c + sigmoid(a_i) tanh(a_g)``, ``h = sigmoid(a_o)
-    tanh(c)`` -> ``(B, T, n_dirs * 128)``, or the last step's h of each
-    direction, ``(B, n_dirs * 128)``."""
-    _check(xg, w_hh)
+    tanh(c)`` -> ``(B, T, n_dirs * H)``, or the last step's h of each
+    direction, ``(B, n_dirs * H)``."""
+    H = _check(xg, w_hh)
     B, T, _ = xg.shape
-    G = 4 * HIDDEN
+    G = 4 * H
     outs = []
     for d, w in enumerate(w_hh):
-        h = c = xg.new_zeros(B, HIDDEN)
+        h = c = xg.new_zeros(B, H)
         steps = range(T - 1, -1, -1) if d else range(T)
         hs = [None] * T
         for p in steps:
@@ -111,27 +123,30 @@ def lstm_scan_reference(
 
 
 def lstm_scan(xg: torch.Tensor, w_hh: tuple[torch.Tensor, ...], *, last_only: bool = False) -> torch.Tensor:
-    """``(B, T, n_dirs * 512)`` input gates and each direction's ``W_hh``
-    ``(512, 128)`` (forward, then backward) -> the recurrence's output,
-    ``(B, T, n_dirs * 128)``, or with ``last_only`` the last step's h of each
-    direction, ``(B, n_dirs * 128)``. On a CUDA tensor one launch of the
-    kernel on the current stream, counted as ``lstm_scan``; on a CPU tensor
-    ``lstm_scan_reference``."""
-    _check(xg, w_hh)
+    """``(B, T, n_dirs * 4 H)`` input gates and each direction's ``W_hh``
+    ``(4 H, H)`` (forward, then backward) -> the recurrence's output,
+    ``(B, T, n_dirs * H)``, or with ``last_only`` the last step's h of each
+    direction, ``(B, n_dirs * H)``. On a CUDA tensor one launch of H's kernel
+    (``KERNELS``) on the current stream, counted on its counter; on a CPU
+    tensor ``lstm_scan_reference``."""
+    H = _check(xg, w_hh)
     if not on_card(xg, "lstm_scan"):
         return lstm_scan_reference(xg, w_hh, last_only=last_only)
+    if H not in KERNELS:
+        raise NotImplementedError(f"lstm_scan has kernels for hidden {sorted(KERNELS)}, got {H}")
     if xg.dtype != torch.float32:
         raise NotImplementedError(f"lstm_scan takes float32, got {xg.dtype}")
+    source, symbol, counter = KERNELS[H]
     for w in w_hh:
-        refuse_grad(w, "lstm_scan")
+        refuse_grad(w, counter)
     xg = xg.contiguous()
     w_hh = tuple(w.contiguous() for w in w_hh)
     B, T, _ = xg.shape
     n = len(w_hh)
-    out = xg.new_empty((B, n * HIDDEN) if last_only else (B, T, n * HIDDEN))
+    out = xg.new_empty((B, n * H) if last_only else (B, T, n * H))
     with span("lstm.scan"):
         launch(
-            _build.entry_point("lstm_scan", "lstm_scan_launch", _ARGTYPES), xg, "lstm_scan",
+            _build.entry_point(source, symbol, _ARGTYPES), xg, counter,
             xg.data_ptr(), xg.stride(0), xg.stride(1), w_hh[0].data_ptr(), w_hh[-1].data_ptr(),
             out.data_ptr(), out.stride(0), 0 if last_only else out.stride(1), B, T, n, int(last_only),
             rows=B,

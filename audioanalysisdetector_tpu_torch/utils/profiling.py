@@ -110,9 +110,9 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   scorer call and one a mel scorer call, inside ``score.model``:
   ``span.lstm_ms.score``.
 - ``lstm.scan``: one launch of K4, the inference LSTM recurrence
-  (``ops/lstm_scan.py``): two a fused scorer call, each inside
-  ``lstm.layer``, none in the mel scorer (hidden 32 keeps cuDNN) and
-  none where a backward is asked: the recurrence's device ms a call
+  (``ops/lstm_scan.py``): two a fused scorer call and one a mel scorer
+  call (its hidden-32 kernel), each inside ``lstm.layer``, and none where
+  a backward is asked: the recurrence's device ms a call
   (``harness/spans.py::per_call``).
 - ``cqcc.kernel``: one launch of K5, the CQCC of raw waveforms
   (``ops/cqcc.py``, routed by ``frontend/cqcc.py::cqcc``): one a fused

@@ -13,8 +13,8 @@ each print their lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
-   ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` (K4),
-   ``ops/csrc/cqcc.cu`` (K5) and ``ops/csrc/gmm_llr.cu`` (K6) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+   ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` and
+   ``ops/csrc/lstm_scan_h32.cu`` (K4), ``ops/csrc/cqcc.cu`` (K5) and ``ops/csrc/gmm_llr.cu`` (K6) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
    (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
@@ -45,12 +45,14 @@ each print their lines:
    128 mels and at n_fft 100 off alignment, bf16 against f32, the times
    beside the bound and the library chain; then the drop-in
    ``fused_log_mel_spectrogram`` path in both dtypes, counting its launches;
-5b. K4: ``lstm_scan`` at the fused scorer's shapes (B=8192, T=63): layer
-   1's two directions in one launch (19 inputs, full output) and layer 2's
-   forward scan (256 inputs, last step only), against its plain version
-   and ``nn.LSTM`` (cuDNN, a yardstick only), one launch each; the kernel,
-   plain and cuDNN times in turns beside the bound and the input
-   projection's time; a ``BiLSTM`` call with grad enabled keeps cuDNN;
+5b. K4: ``lstm_scan`` at the fused scorer's shapes (B=8192, T=63, hidden
+   128): layer 1's two directions in one launch (19 inputs, full output)
+   and layer 2's forward scan (256 inputs, last step only), and at the mel
+   model's (B=8192, T=32, 64 inputs, hidden 32, both directions, full
+   output: the hidden-32 kernel, ``lstm_scan.h32``), against its plain
+   version and ``nn.LSTM`` (cuDNN, a yardstick only), one launch each; the
+   kernel, plain and cuDNN times in turns beside the bound and the input
+   projection's time; ``BiLSTM`` calls with grad enabled keep cuDNN;
 5c. K5: ``cqcc`` (raw waveform to CQCC in one launch) under ``cqcc()``
    against the plain chain on the card (B=8192 2-s clips, a ragged 13,
    silence, 1 s, 512 and 32,704 samples, a 3-D batch), frames whose
@@ -421,6 +423,8 @@ KERNEL_SOURCES = {
     "fused_mel_from_frames": ("ops/csrc/wave_mel.cu", "audioanalysisdetector_tpu/ops/fused_logmel.py:84"),
     "ct_mel": ("ops/csrc/ct_mel.cu", "audioanalysisdetector_tpu/ops/ct_mel.py:154"),
     "lstm_scan": ("ops/csrc/lstm_scan.cu", "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under nn.LSTM"),
+    "lstm_scan.h32": ("ops/csrc/lstm_scan_h32.cu",
+                      "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under the mel model's nn.LSTM (hidden 32)"),
     "cqcc": ("ops/csrc/cqcc.cu", "no TPU kernel: the plain CQT -> CQCC chain's SGEMMs, cat and elementwise passes"),
     "gmm_llr": ("ops/csrc/gmm_llr.cu", "no TPU kernel: the plain GMM arm's SGEMMs, elementwise and reduction passes"),
 }
@@ -654,7 +658,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel", "lstm_scan", "cqcc", "gmm_llr")
+    libs = ("wave_mel", "ct_mel", "lstm_scan", "lstm_scan_h32", "cqcc", "gmm_llr")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -932,14 +936,15 @@ def phase_k2() -> dict:
     return results
 
 
-def lstm_bound(batch: int, steps: int, n_dirs: int, last_only: bool) -> dict:
+def lstm_bound(batch: int, steps: int, n_dirs: int, last_only: bool, hidden: int) -> dict:
     """The least time the card could take for ``n_dirs`` LSTM scans of
-    hidden 128 (``ops/csrc/lstm_scan.cu``'s bound): the larger of the
-    ``h W_hh^T`` operations, 2 B T 512 128 a direction, at FP32_FLOP_PER_S,
-    and the bytes, the input gates (B T 512 a direction) and W_hh read once
-    and the output written once, at HBM_BYTES_PER_S. The input projection
-    is a separate product, outside the bound."""
-    gates, hidden = 4 * k4.HIDDEN, k4.HIDDEN
+    ``hidden`` units (``ops/csrc/lstm_scan.cu``'s and ``lstm_scan_h32.cu``'s
+    bound): the larger of the ``h W_hh^T`` operations, 2 B T 4H H a
+    direction, at FP32_FLOP_PER_S, and the bytes, the input gates (B T 4H a
+    direction) and W_hh read once and the output written once, at
+    HBM_BYTES_PER_S. The input projection is a separate product, outside
+    the bound."""
+    gates = 4 * hidden
     ops = 2 * batch * steps * gates * hidden * n_dirs
     bytes_ = 4 * n_dirs * (batch * steps * gates + gates * hidden + batch * (1 if last_only else steps) * hidden)
     ops_ms, bytes_ms = ops / FP32_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
@@ -947,14 +952,19 @@ def lstm_bound(batch: int, steps: int, n_dirs: int, last_only: bool) -> dict:
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
+# (name, inputs, steps, hidden, last_only): the fused classifier's two layers, the mel model's BiLSTM
+K4_CASES = (("layer1", 19, 63, 128, False), ("layer2", 256, 63, 128, True), ("mel", 64, 32, 32, False))
+
+
 def phase_k4() -> dict:
-    """K4 vs its plain version and cuDNN at the fused scorer's two layers;
-    returns layer 1's numbers (the launch of both directions)."""
-    steps = 63
+    """K4 vs its plain version and cuDNN at the fused scorer's two layers
+    and the mel model's BiLSTM; returns, by launch counter, the fused
+    layer 1's numbers (the launch of both directions) and the mel case's."""
     out = {}
-    for layer, inputs, last_only in (("layer1", 19, False), ("layer2", 256, True)):
+    for layer, inputs, steps, hidden, last_only in K4_CASES:
+        counter = k4.KERNELS[hidden][2]
         torch.manual_seed(21)
-        lstm = torch.nn.LSTM(inputs, k4.HIDDEN, batch_first=True, bidirectional=not last_only).to(DEVICE)
+        lstm = torch.nn.LSTM(inputs, hidden, batch_first=True, bidirectional=not last_only).to(DEVICE)
         x = torch.randn(BATCH, steps, inputs, device=DEVICE)
         sfx = ("",) if last_only else ("", "_reverse")
         ws = tuple(getattr(lstm, f"weight_hh_l0{s}") for s in sfx)
@@ -972,29 +982,32 @@ def phase_k4() -> dict:
             del got, ref, lib
             t = in_turns(kern, plain, lambda: lstm(x))
             proj_ms = cuda_ms(lambda: k4.input_gates(x, lstm, sfx), 5)
-        bound = lstm_bound(BATCH, steps, len(ws), last_only)
-        flop = 2 * BATCH * steps * 4 * k4.HIDDEN * k4.HIDDEN * len(ws)
-        log("k4", layer=layer, batch=BATCH, steps=steps, inputs=inputs, directions=len(ws), last_only=last_only,
-            launches=counts["lstm_scan"], err_vs_plain=f"{err_plain:.3e}", err_vs_cudnn=f"{err_lib:.3e}",
+        bound = lstm_bound(BATCH, steps, len(ws), last_only, hidden)
+        flop = 2 * BATCH * steps * 4 * hidden * hidden * len(ws)
+        log("k4", layer=layer, kernel=counter, batch=BATCH, steps=steps, inputs=inputs, hidden=hidden,
+            directions=len(ws), last_only=last_only,
+            launches=counts[counter], err_vs_plain=f"{err_plain:.3e}", err_vs_cudnn=f"{err_lib:.3e}",
             plain_vs_cudnn=f"{plain_lib:.3e}", kernel_ms=f"{t['ms']:.3f}", plain_ms=f"{t['plain_ms']:.3f}",
             kernel_runs="%.3f,%.3f" % t["runs"], plain_runs="%.3f,%.3f" % t["plain_runs"],
             kernel_tflops=f"{flop / t['ms'] / 1e9:.2f}", projection_ms=f"{proj_ms:.3f}",
             **bound_fields(t, bound))
-        if counts["lstm_scan"] != 1 or err_plain > LSTM_PLAIN_TOL or err_lib > LSTM_CUDNN_TOL:
+        if counts[counter] != 1 or sum(counts.values()) != 1 or err_plain > LSTM_PLAIN_TOL or err_lib > LSTM_CUDNN_TOL:
             raise AssertionError(f"K4 {layer}: {counts}, {err_plain:.3e} from plain (> {LSTM_PLAIN_TOL}?), "
                                  f"{err_lib:.3e} from cuDNN (> {LSTM_CUDNN_TOL}?)")
         out[layer] = {**t, **bound, "max_abs_err": err_plain}
         del lstm, x, xg
         free()
     # grad mode: the parameters require grad, so BiLSTM keeps cuDNN and its gradients
-    bi = BiLSTM(19, k4.HIDDEN).to(DEVICE)
-    x = torch.randn(64, steps, 19, device=DEVICE, requires_grad=True)
-    _, counts = run_counted(lambda: bi(x).sum().backward())
-    if counts["lstm_scan"] or x.grad is None or bi.lstm.weight_hh_l0.grad is None:
-        raise AssertionError(f"K4 launched under grad mode or the gradients are gone ({counts})")
-    log("k4", grad_mode_launches=counts["lstm_scan"], grads_kept=True)
-    return {**out["layer1"], "max_abs_err": max(v["max_abs_err"] for v in out.values()),
-            "layer2_ms": out["layer2"]["ms"]}
+    for inputs, steps, hidden in ((19, 63, 128), (64, 32, 32)):
+        bi = BiLSTM(inputs, hidden).to(DEVICE)
+        x = torch.randn(64, steps, inputs, device=DEVICE, requires_grad=True)
+        _, counts = run_counted(lambda: bi(x).sum().backward())
+        if any(counts.values()) or x.grad is None or bi.lstm.weight_hh_l0.grad is None:
+            raise AssertionError(f"K4 launched under grad mode or the gradients are gone ({counts})")
+        log("k4", hidden=hidden, grad_mode_launches=sum(counts.values()), grads_kept=True)
+    return {"lstm_scan": {**out["layer1"], "max_abs_err": max(out[k]["max_abs_err"] for k in ("layer1", "layer2")),
+                          "layer2_ms": out["layer2"]["ms"]},
+            "lstm_scan.h32": out["mel"]}
 
 
 def plain_cqcc(y: torch.Tensor, cfg: CQCCConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1207,6 +1220,10 @@ def phase_e2e() -> tuple[dict, dict]:
         scores, counts = run_counted(lambda: score(wav))
         n = expect_launched(counts, kernel, f"e2e {profile}")
         launches[kernel] = launches.get(kernel, 0) + n
+        if counts["lstm_scan.h32"] != 1 or counts["lstm_scan"]:  # the BiLSTM(64, 32): K4's hidden-32 kernel
+            raise AssertionError(f"e2e {profile}: {counts['lstm_scan.h32']} hidden-32 K4 launches a call, not 1 "
+                                 f"({counts})")
+        launches["lstm_scan.h32"] = launches.get("lstm_scan.h32", 0) + 1
         if scores.shape != (BATCH,) or not bool(((scores > 0) & (scores < 1)).all()):
             raise AssertionError(f"{profile}: scores not finite in (0, 1)")
         with torch.inference_mode():
@@ -1218,7 +1235,7 @@ def phase_e2e() -> tuple[dict, dict]:
             raise AssertionError(f"{profile}: scores differ from the plain mel path by {diff:.3e}")
         ms = cuda_ms(lambda: score(wav), 3)
         rates[profile] = BATCH / ms * 1e3
-        log("e2e", profile=profile, batch=BATCH, kernel=kernel, launches=n,
+        log("e2e", profile=profile, batch=BATCH, kernel=kernel, launches=n, lstm_scan_h32_launches=1,
             score_diff_vs_plain=f"{diff:.3e}", mel_vs_numpy64=f"{small_rel:.3e}",
             score_range=f"{float(scores.min()):.4f}..{float(scores.max()):.4f}",
             ms=f"{ms:.3f}", utt_per_s=f"{rates[profile]:.1f}")
@@ -3304,8 +3321,8 @@ def main() -> int:
     k4_timed = timed_phase(phase_k4)
     k5_timed = timed_phase(phase_k5)
     k6_timed = timed_phase(phase_k6)
-    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0, "cqcc": 0,
-                "gmm_llr": 0}
+    launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0,
+                "lstm_scan.h32": 0, "cqcc": 0, "gmm_llr": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
@@ -3324,7 +3341,8 @@ def main() -> int:
         "wave_mel": k1["parity"],
         "fused_mel_from_frames": k2[("parity", "float32")],
         "ct_mel": k3,
-        "lstm_scan": k4_timed,
+        "lstm_scan": k4_timed["lstm_scan"],
+        "lstm_scan.h32": k4_timed["lstm_scan.h32"],
         "cqcc": k5_timed,
         "gmm_llr": k6_timed,
     }

@@ -43,8 +43,8 @@ def _zeros() -> dict[str, int]:
 
 def test_the_ledger_keeps_every_counter_in_order():
     assert ops.LAUNCH_COUNTERS == (
-        "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "cqcc",
-        "gmm_llr",
+        "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "lstm_scan.h32",
+        "cqcc", "gmm_llr",
     )
     assert tuple(ops.launch_counts()) == ops.LAUNCH_COUNTERS
     counts = ops.launch_counts()
@@ -81,7 +81,7 @@ def test_launch_appends_the_stream_and_counts_each_named_counter_once(fake_card)
     assert ops.launch_counts() == {**_zeros(), "ct_mel": 2, "ct_mel.reflect": 2, "ct_mel.db": 1, "wave_mel": 1}
 
 
-@pytest.mark.parametrize("kernel", ["lstm_scan", "cqcc", "gmm_llr"])
+@pytest.mark.parametrize("kernel", ["lstm_scan", "lstm_scan.h32", "cqcc", "gmm_llr"])
 def test_each_kernel_counts_on_its_own_counter(fake_card, kernel):
     entry = FakeEntry()
     ops.launch(entry, torch.zeros(4), kernel, 5, rows=4)
