@@ -496,7 +496,8 @@ def cmd_score(args) -> int:
     w2v-BERT 2.0 + MHFA the same way, on 256,000 samples; ``--model
     whisper-mhfa`` with Whisper large-v3's encoder + MHFA on 480,000
     samples (30 s), a short clip zero-padded and a long one trimmed, as the
-    published extractor does."""
+    published extractor does; ``--model voxtral-detect`` with Voxtral-Mini-3B
+    read as a detector on whole clips (``_score_voxtral``)."""
     from audioanalysisdetector_tpu_torch.frontend.mel import MelConfig
     from audioanalysisdetector_tpu_torch.score.e2e import (
         init_mel_cnn_bilstm,
@@ -512,7 +513,8 @@ def cmd_score(args) -> int:
             "--model xlsr-aasist the published LA_model.pth, for --model "
             "wavlm-mhfa the published WavLM-Large front end, for --model "
             "w2vbert-mhfa the published w2v-BERT 2.0 front end, for --model "
-            "whisper-mhfa the published Whisper large-v3 model), "
+            "whisper-mhfa the published Whisper large-v3 model, for --model "
+            "voxtral-detect the published Voxtral-Mini-3B), "
             "or --allow-random to proceed anyway (smoke tests only).",
             file=sys.stderr,
         )
@@ -523,6 +525,8 @@ def cmd_score(args) -> int:
         return 1
     if args.model in ("xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa", "whisper-mhfa"):
         return _score_ssl(args, paths)
+    if args.model == "voxtral-detect":
+        return _score_voxtral(args, paths)
     mel_cfg = MelConfig.for_profile(args.mel_profile, args.sr, n_mels=args.n_mels)
     model = init_mel_cnn_bilstm(
         mel_cfg, int(args.seconds * args.sr), checkpoint=args.checkpoint,
@@ -567,6 +571,58 @@ def _score_ssl(args, paths: list[str]) -> int:
     )
     for p, s in zip(kept, scores):
         print(json.dumps({"file": p, "bonafide_logit": float(s)}))
+    return 0
+
+
+def _score_voxtral(args, paths: list[str]) -> int:
+    """``--model voxtral-detect``: each file decoded whole at 16 kHz and
+    zero-padded to the next multiple of 30 s, as ``VoxtralProcessor`` pads
+    it (an empty file to one window); clips of equal window count scored
+    together, ``--batch-size`` clips a call at most; one bona fide score a
+    file, in the files' order. A file that cannot be decoded is skipped
+    with a warning. Memory: the weights' 18.7 GB and ~0.1 GB a window (2
+    clips of 300 s peak at 20.6 GB on an H100), so long clips want a
+    smaller ``--batch-size`` than the default."""
+    import wave
+
+    import torch
+
+    from audioanalysisdetector_tpu_torch.io.audio import load_audio
+    from audioanalysisdetector_tpu_torch.score import e2e
+
+    if args.sr != e2e.VOXTRAL_SR:
+        print(f"score: --model voxtral-detect takes {e2e.VOXTRAL_SR} Hz audio, not --sr {args.sr}",
+              file=sys.stderr)
+        return 2
+    model = e2e.init_voxtral_detect(checkpoint=args.checkpoint, device=args.device)
+    score = e2e.make_voxtral_detect_scorer(model)
+    window = model.window_samples
+    groups: dict[int, list[tuple[str, np.ndarray]]] = {}
+    scores: dict[str, float] = {}
+
+    def flush(w: int) -> None:
+        kept = groups.pop(w)
+        batch = torch.from_numpy(np.stack([row for _, row in kept])).to(args.device)
+        for (p, _), s in zip(kept, score(batch).tolist()):
+            scores[p] = s
+
+    for p in paths:
+        try:
+            y = load_audio(p, sr=e2e.VOXTRAL_SR)[0]
+        except (OSError, EOFError, ValueError, RuntimeError, wave.Error) as e:
+            print(f"WARNING: cannot read {p}: skipped ({e})", file=sys.stderr)
+            continue
+        w = max(1, -(-len(y) // window))
+        row = np.zeros(w * window, np.float32)
+        row[:len(y)] = y
+        groups.setdefault(w, []).append((p, row))
+        if len(groups[w]) >= args.batch_size:
+            flush(w)
+    for w in list(groups):
+        flush(w)
+    for p in paths:
+        if p in scores:
+            print(json.dumps({"file": p, "bonafide_score": scores[p]}))
     return 0
 
 
@@ -895,11 +951,12 @@ def build_parser() -> argparse.ArgumentParser:
         )
 
     sp = sub.add_parser("score", help="log-mel + CNN-BiLSTM (or SSL-AASIST, WavLM-MHFA, w2v-BERT-MHFA, "
-                        "Whisper-MHFA) spoof scoring")
+                        "Whisper-MHFA, Voxtral) spoof scoring")
     sp.add_argument("audio", help="WAV/FLAC directory or glob")
     mel_flags(sp)
     sp.add_argument(
-        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa", "whisper-mhfa"),
+        "--model", choices=("cnn-bilstm", "xlsr-aasist", "wavlm-mhfa", "w2vbert-mhfa", "whisper-mhfa",
+                            "voxtral-detect"),
         default="cnn-bilstm",
         help="cnn-bilstm: log-mel + CNN-BiLSTM, a spoof probability; "
         "xlsr-aasist: SSL-AASIST (XLS-R 300M + AASIST) on 64,600 raw "
@@ -907,7 +964,9 @@ def build_parser() -> argparse.ArgumentParser:
         "(16 s); w2vbert-mhfa: w2v-BERT 2.0 + MHFA on the same 16 s; "
         "the three repeat short clips; whisper-mhfa: Whisper large-v3's "
         "encoder + MHFA on 480,000 samples (30 s), short clips zero-padded; "
-        "the four give the bona fide logit "
+        "the four give the bona fide logit; voxtral-detect: Voxtral-Mini-3B "
+        "as a detector on whole clips padded to a multiple of 30 s, the margin "
+        "of its two answer logits "
         "(--seconds and the mel flags do not apply)",
     )
     sp.add_argument(

@@ -674,3 +674,40 @@ def whisper_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
             state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
             break
     return {_port_name(name, _WHISPER_PREFIXES, (), ""): t for name, t in state.items()}
+
+
+# huggingface.co/mistralai/Voxtral-Mini-3B-2507 (transformers'
+# ``VoxtralForConditionalGeneration``) past its audio tower: (published
+# prefix, port prefix), first match wins
+_VOXTRAL_PREFIXES = (
+    ("multi_modal_projector.", "projector."),
+    ("language_model.model.embed_tokens.", "embed."),
+    ("language_model.model.layers.{i}.input_layernorm.", "layers.{i}.attn_norm."),
+    ("language_model.model.layers.{i}.self_attn.q_proj.", "layers.{i}.q."),
+    ("language_model.model.layers.{i}.self_attn.k_proj.", "layers.{i}.k."),
+    ("language_model.model.layers.{i}.self_attn.v_proj.", "layers.{i}.v."),
+    ("language_model.model.layers.{i}.self_attn.o_proj.", "layers.{i}.o."),
+    ("language_model.model.layers.{i}.post_attention_layernorm.", "layers.{i}.ffn_norm."),
+    ("language_model.model.layers.{i}.mlp.gate_proj.", "layers.{i}.gate."),
+    ("language_model.model.layers.{i}.mlp.up_proj.", "layers.{i}.up."),
+    ("language_model.model.layers.{i}.mlp.down_proj.", "layers.{i}.down."),
+    ("language_model.model.norm.", "norm."),
+    ("language_model.lm_head.", "lm_head."),
+    ("lm_head.", "lm_head."),
+)
+
+
+def voxtral_to_port(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The published Voxtral-Mini-3B (huggingface.co/mistralai/
+    Voxtral-Mini-3B-2507 ``model.safetensors`` as a state dict, under
+    transformers' names: ``audio_tower.*``, ``multi_modal_projector.*``,
+    ``language_model.model.*``, ``language_model.lm_head`` or ``lm_head``)
+    -> ``models.voxtral.VoxtralDetector``'s weights. The audio tower maps
+    as ``whisper_to_port`` maps Whisper's encoder, under ``whisper.``; the
+    prompt's ids are no published tensor and are not given. A tensor of a
+    module the port does not build raises KeyError."""
+    tower = {k[len("audio_tower."):]: v for k, v in state.items() if k.startswith("audio_tower.")}
+    out = {"whisper." + k: v for k, v in whisper_to_port(tower).items()}
+    out.update({_port_name(name, _VOXTRAL_PREFIXES, (), ""): t for name, t in state.items()
+                if not name.startswith("audio_tower.")})
+    return out

@@ -14,7 +14,8 @@ alone — ``ops/ct_mel.py::ct_mel`` (K3) where its factorization applies (the
 parity profile), ``ops/wave_mel.py::wave_mel`` (K1) everywhere else; a CPU
 tensor goes through the plain chain (frames @ DFT bases -> |.|^2 -> @
 mel_fb.T). ``whisper_log_mel`` is Whisper's normalised log-mel on the same
-route (K1 at Whisper's n_fft 400).
+route (K1 at Whisper's n_fft 400); ``whisper_log_mel_windows`` is the same
+over whole clips, cut into 30-s windows (Voxtral's audio input).
 """
 
 from __future__ import annotations
@@ -249,3 +250,19 @@ def whisper_log_mel(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     batch, so a clip's features there depend on its batch)."""
     log_spec = power_to_db(melspectrogram(y, cfg)[..., :-1], ref=1.0, amin=1e-10, top_db=80.0, utt_axes=2) / 10.0
     return (log_spec + 4.0) / 4.0
+
+
+def whisper_log_mel_windows(y: torch.Tensor, cfg: MelConfig, window_frames: int) -> torch.Tensor:
+    """Whisper's log-mel of whole ``(B, n)`` clips cut into windows ->
+    ``(B, W, n_mels, window_frames)``, as ``VoxtralProcessor`` prepares a
+    clip padded to a multiple of 30 s: one ``whisper_log_mel`` over the
+    whole clip (its reflect padding at the clip's two ends only, its max
+    the whole clip's), then its ``n // hop`` frames cut into ``W``
+    consecutive windows. On the card that is one K1 launch over the B
+    clips."""
+    mel = whisper_log_mel(y, cfg)
+    b, m, t = mel.shape
+    if t % window_frames:
+        raise ValueError(f"{t} mel frames do not cut into windows of {window_frames}: pad the clips to a "
+                         f"multiple of {window_frames * cfg.hop_length} samples")
+    return mel.view(b, m, t // window_frames, window_frames).transpose(1, 2)

@@ -22,7 +22,8 @@ transformers' ``WhisperEncoder`` computes it in eval mode:
 
 ``hidden_states`` gives the 33 states that
 ``WhisperEncoder(output_hidden_states=True)`` gives: the embedded input,
-layers 1-31's outputs, and the final LayerNorm of layer 32's output. The
+layers 1-31's outputs, and the final LayerNorm of layer 32's output;
+``last_state`` gives the last of them alone (``models/voxtral.py``). The
 decoder is no part of a detector and is not built; dropouts are identities
 at inference. ``WhisperEncoder()`` holds 636,968,960 parameters, the
 positions' table among them (transformers keeps it as an embedding, loaded
@@ -119,5 +120,14 @@ class WhisperEncoder(nn.Module):
             h = layer(h)
         return states + [self.norm(h)]
 
+    def last_state(self, mel: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm of the last layer's output alone, from
+        ``features``' output: ``hidden_states()[-1]`` with no other state
+        kept alive (the state Voxtral's projector reads)."""
+        h = self.embed_positions(self.conv_stem(mel))
+        for layer in self.layers:
+            h = layer(h)
+        return self.norm(h)
+
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        return self.hidden_states(self.features(wav))[-1]
+        return self.last_state(self.features(wav))

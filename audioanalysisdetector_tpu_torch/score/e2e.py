@@ -9,7 +9,11 @@ scores with SSL-AASIST (``models/aasist.py``): 64,600 raw samples -> XLS-R
 MHFA (``models/mhfa.py``): whole 16-s clips, 256,000 samples -> the front
 end's 25 hidden states -> MHFA -> the bona fide logit; and with Whisper
 large-v3's encoder + MHFA: 30-s windows, 480,000 samples -> K1's log-mel ->
-the encoder's 33 hidden states -> MHFA -> the bona fide logit.
+the encoder's 33 hidden states -> MHFA -> the bona fide logit; and with
+Voxtral-Mini-3B read as a detector: whole clips of any multiple of 30 s ->
+K1's log-mel of each whole clip in 30-s windows -> Whisper's encoder ->
+the projector -> a 30-layer decoder -> the margin of two answer logits at
+the last prompt position.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from audioanalysisdetector_tpu_torch.models.aasist import SSLAASIST
 from audioanalysisdetector_tpu_torch.models.cnn_bilstm import CNNBiLSTMHybrid
 from audioanalysisdetector_tpu_torch.models.gmm import DiagGMM
 from audioanalysisdetector_tpu_torch.models.mhfa import SSLMHFA, W2VBertMHFA, WavLMMHFA, WhisperMHFA
+from audioanalysisdetector_tpu_torch.models.voxtral import VoxtralDetector, draw_prompt_ids
 from audioanalysisdetector_tpu_torch.models.w2v_bert import W2VBert
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import XLSR, WavLM
 from audioanalysisdetector_tpu_torch.models.whisper import WhisperEncoder
@@ -48,6 +53,9 @@ W2VBERT_MHFA_SAMPLES = 256000
 # or trims every clip
 WHISPER_MHFA_SR = 16000
 WHISPER_MHFA_SAMPLES = 480000
+# Voxtral's input: 16-kHz clips of any multiple of 480,000 samples (30 s),
+# as VoxtralProcessor pads them
+VOXTRAL_SR = 16000
 
 
 def melspec_features(wav: torch.Tensor, mel_cfg: MelConfig) -> torch.Tensor:
@@ -316,13 +324,13 @@ def init_wavlm_mhfa(
     return model.to(device).eval()
 
 
-def _make_mhfa_scorer(model: SSLMHFA, first: tuple[str, Callable], second: tuple[str, Callable]
-                      ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``(B, n) -> (B,)`` bona fide logits (``logits[:, 1]``) of a front end
-    + MHFA, on the model's device, under ``torch.inference_mode()`` with
-    TF32 off (``ieee_fp32``): the front end in two named halves, ``first``
-    from the waveform and ``second`` to the hidden states, inside
-    ``score.frontend``; MHFA (``mhfa.pool``) inside ``score.model``."""
+def _make_scorer(model: torch.nn.Module, first: tuple[str, Callable], second: tuple[str, Callable],
+                 head: Callable[[torch.Tensor], torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, n) -> (B,)`` scores of a front end in two named halves and a
+    head, on the model's device, under ``torch.inference_mode()`` with TF32
+    off (``ieee_fp32``): ``first`` from the waveform and ``second`` to the
+    states, each under its span inside ``score.frontend``; ``head`` from the
+    states to the scores inside ``score.model``."""
     ieee_fp32()
     model.eval()
 
@@ -335,9 +343,16 @@ def _make_mhfa_scorer(model: SSLMHFA, first: tuple[str, Callable], second: tuple
                 with span(second[0]):
                     states = second[1](feats)
             with span("score.model"):
-                return model.mhfa(states)[:, 1]
+                return head(states)
 
     return score
+
+
+def _make_mhfa_scorer(model: SSLMHFA, first: tuple[str, Callable], second: tuple[str, Callable]
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``_make_scorer`` of a front end + MHFA: the bona fide logits
+    (``logits[:, 1]``; ``mhfa.pool``) as the head."""
+    return _make_scorer(model, first, second, lambda states: model.mhfa(states)[:, 1])
 
 
 def make_wavlm_mhfa_scorer(model: WavLMMHFA) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -466,6 +481,66 @@ def make_whisper_mhfa_scorer(model: WhisperMHFA) -> Callable[[torch.Tensor], tor
     whisper = model.whisper
     return _make_mhfa_scorer(model, ("whisper.log_mel", whisper.features),
                              ("whisper.encoder", whisper.hidden_states))
+
+
+def _init_voxtral(model: VoxtralDetector, generator: torch.Generator) -> None:
+    """transformers' ``VoxtralPreTrainedModel._init_weights``, drawn from
+    ``generator``: every conv and linear layer and the token embedding N(0,
+    0.02), biases zero; LayerNorms and RMSNorms weight 1 (bias 0); the
+    positions keep their sinusoids. The prompt's ids are drawn too
+    (``draw_prompt_ids``)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Linear, torch.nn.Embedding)):
+                mod.weight.normal_(0.0, 0.02, generator=generator)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+        for name, ids in draw_prompt_ids(model.cfg, generator).items():
+            getattr(model, name).copy_(ids)
+
+
+def init_voxtral_detect(
+    *,
+    checkpoint: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> VoxtralDetector:
+    """Voxtral-Mini-3B as a detector at the published widths in eval mode,
+    built on ``device``.
+
+    Parameters are drawn from a generator on ``device`` seeded with
+    ``seed`` at the published initialisation scales (``_init_voxtral``),
+    and the prompt's ids with them. With ``checkpoint``: the published model
+    (huggingface.co/mistralai/Voxtral-Mini-3B-2507 as a ``torch.save`` state
+    dict, converted by ``convert.voxtral_to_port``) replaces every weight
+    and keeps the seeded prompt; a ``torch.save`` state dict of this model
+    replaces every tensor, the prompt's ids among them. Either must fit
+    exactly."""
+    from audioanalysisdetector_tpu_torch.convert import voxtral_to_port
+
+    with torch.device(device):
+        model = VoxtralDetector()
+        _init_voxtral(model, torch.Generator(device=device).manual_seed(seed))
+    if checkpoint:
+        state = torch.load(checkpoint, map_location=device, weights_only=True)
+        if "whisper.conv1.weight" not in state:
+            prompt = {k: getattr(model, k) for k in ("prefix_ids", "suffix_ids", "answer_ids")}
+            state = {**voxtral_to_port(state), **prompt}
+        model.load_state_dict(state)
+    return model.eval()
+
+
+def make_voxtral_detect_scorer(model: VoxtralDetector) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, n) -> (B,)`` bona fide scores, ``n`` a multiple of 480,000
+    (``_make_scorer``). Spans: ``whisper.log_mel`` (the whole-clip log-mel
+    in windows: the center pad, one K1 launch over the B clips on the card,
+    each clip's max) and ``whisper.encoder`` (the B W windows in one batch:
+    ``whisper.conv_stem``, the positions, the 32 layers, each under
+    ``ssl.attend``) inside ``score.frontend``; ``voxtral.projector``, the
+    prompt's embedding and splice, ``voxtral.decoder`` (30 ``lm.attend``)
+    and ``voxtral.head`` inside ``score.model``."""
+    return _make_scorer(model, ("whisper.log_mel", model.features), ("whisper.encoder", model.encode),
+                        model.answer)
 
 
 def make_e2e_train_step_inputs(wav: torch.Tensor, cqcc_cfg: CQCCConfig) -> torch.Tensor:

@@ -90,7 +90,18 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   ``whisper.logmel_ms.score`` reads the first.
 - ``whisper.conv_stem``: the two convs of Whisper's stem with their GELUs
   (``models/whisper.py::WhisperEncoder.conv_stem``), once a call inside
-  ``whisper.encoder``: ``whisper.stem_ms.score``.
+  ``whisper.encoder``: ``whisper.stem_ms.score``. Voxtral's scorer opens
+  ``whisper.log_mel`` (the whole clips' log-mel cut into windows),
+  ``whisper.encoder`` (all the windows of a call in one batch),
+  ``whisper.conv_stem`` and ``ssl.attend`` as Whisper-MHFA's does.
+- ``voxtral.projector``, ``voxtral.decoder``, ``voxtral.head``: Voxtral's
+  projector, its 30 decoder layers and its last-position head
+  (``models/voxtral.py``), once a call inside ``score.model``:
+  ``voxtral.decoder_ms.score`` reads the decoder.
+- ``lm.attend``: ``models/voxtral.py::lm_attend``, one decoder layer's
+  causal grouped-query attention (the K/V expansion to the query heads,
+  SDPA, the merge transpose), 30 a call inside ``voxtral.decoder``:
+  ``voxtral.lm_attention_roofline``.
 - ``mhfa.pool``: MHFA's layer mixes, compressions and attentive pooling
   (``models/mhfa.py``), inside ``score.model``: the pooling's device ms a
   call (``harness/spans.py::per_call``).

@@ -22,8 +22,9 @@ each print their lines:
    / 10 ms speech framing, a sample tail past the kernel's 32-sample
    stages), at n_fft 64 (fewer stages than the ring is deep), with 128
    mels, and at Whisper large-v3's log-mel (n_fft 400, 128 Slaney mels to
-   8 kHz) on 16 30-s rows, whole and as 7-s clips zero-padded, mel power
-   and dB; then the configurations K1 took up last (power
+   8 kHz) on 16 30-s rows, whole and as 7-s clips zero-padded, and on the
+   voxtral-detect cell's 2 300-s rows (30,001 frames), whole and as 65-s
+   clips zero-padded, mel power and dB; then the configurations K1 took up last (power
    1, a bfloat16 waveform, also off 16-byte alignment, and 256 mels in two
    filter groups), each through ``melspectrogram``'s route too; then the
    kernel, plain and library times from CUDA events, in turns, beside the
@@ -95,6 +96,14 @@ each print their lines:
     the bound; then one ``make_whisper_mhfa_scorer`` call (the encoder and
     MHFA at the published widths) on those rows: exactly one K1 launch and
     no other hand-written kernel, ms per call and peak memory;
+9c. voxtral: the whole-clip log-mel in windows (``whisper_log_mel_windows``:
+    one K1 launch over 2 300-s clips, each clip's max, windows at levels of
+    their own) against the plain chain on the CPU, the frames at window
+    edges read apart, a log-mel of each window alone far off; then one
+    ``make_voxtral_detect_scorer`` call at the published widths (4.68 B
+    parameters) on those clips: exactly one K1 launch and no other
+    hand-written kernel, 20 windows and 7,540 decoder positions
+    (``work_counts``), ms per call and peak memory;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -243,6 +252,7 @@ from audioanalysisdetector_tpu_torch.frontend.mel import (
     mel_route,
     melspectrogram,
     whisper_log_mel,
+    whisper_log_mel_windows,
 )
 from audioanalysisdetector_tpu_torch.frontend.mfcc import MFCCConfig
 from audioanalysisdetector_tpu_torch.frontend.stft import (
@@ -277,6 +287,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
 from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
+from audioanalysisdetector_tpu_torch.models.voxtral import reset_work_counts, work_counts
 from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from audioanalysisdetector_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
@@ -290,9 +301,11 @@ from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
     WHISPER_MHFA_SAMPLES,
     init_mel_cnn_bilstm,
+    init_voxtral_detect,
     init_whisper_mhfa,
     make_cqcc_fused_scorer,
     make_mel_cnn_bilstm_scorer,
+    make_voxtral_detect_scorer,
     make_whisper_mhfa_scorer,
 )
 from audioanalysisdetector_tpu_torch.score.fused import arm_scores, make_fused_scorer, padding_mask
@@ -345,6 +358,8 @@ DB_TOL_MANY_MELS = 3e-2
 # narrower than its bins; a clip at the batch's max - 8 moves the quieter
 # rows' padded frames by 0.1 or more
 WHISPER_LOGMEL_TOL = DB_TOL_MANY_MELS / 40.0
+# the voxtral-detect cell's clips: 300 s, ten 30-s windows
+VOXTRAL_SAMPLES = 10 * WHISPER_MHFA_SAMPLES
 # K2 in bf16 against its f32 result: the median relative error of the mel
 # power (the bound of the JAX package's tests/test_ops_pallas.py:54)
 BF16_MEDIAN_TOL = 0.02
@@ -681,7 +696,8 @@ K1_WIDE = ("power1", "bf16", "mels256")  # beyond power 2, float32 and 128 mels
 
 def phase_k1() -> dict:
     """K1 vs plain in both profiles, at n_fft 400 and 64, with 128 mels and
-    at Whisper's shape; returns the numbers (and times) of the two profiles."""
+    at Whisper's and Voxtral's shapes; returns the numbers (and times) of
+    the two profiles."""
     results = {}
     configs = [(p, MelConfig.for_profile(p, SR), K1_CASES) for p in PROFILES]
     configs.append(("n_fft400", MelConfig(sr=SR, n_fft=400, hop_length=160),
@@ -691,6 +707,10 @@ def phase_k1() -> dict:
     # the whisper-mhfa cell's shape: 16 30-s windows (3,001 frames)
     configs.append(("whisper", WHISPER_LARGE_V3.mel,
                     (("random", 16, WHISPER_MHFA_SAMPLES), ("padded7s", 16, WHISPER_MHFA_SAMPLES))))
+    # the same log-mel over the voxtral-detect cell's whole clips: 2 rows of
+    # 300 s (30,001 frames), whose frames cross every 30-s window edge
+    configs.append(("voxtral", WHISPER_LARGE_V3.mel,
+                    (("random", 2, VOXTRAL_SAMPLES), ("padded65s", 2, VOXTRAL_SAMPLES))))
     # fewer 32-sample stages than the ring is deep
     configs.append(("n_fft64", MelConfig(sr=SR, n_fft=64, hop_length=32, n_mels=16),
                     (("ragged", 13, N_SAMPLES),)))
@@ -708,6 +728,8 @@ def phase_k1() -> dict:
             wav = waves(batch, 1, n) if case != "silence" else torch.zeros((batch, n), device=DEVICE)
             if case == "padded7s":  # 7-s clips zero-padded to the window, as Whisper's extractor pads
                 wav[:, 7 * SR:] = 0.0
+            if case == "padded65s":  # 65-s clips zero-padded to whole windows, as VoxtralProcessor pads
+                wav[:, 65 * SR:] = 0.0
             wav = wav.to(dtype)
             padded = center_pad(wav, cfg.n_fft, cfg.pad_mode).contiguous()
             got = wm.wave_mel(padded, cfg, n_frames=T)
@@ -723,7 +745,7 @@ def phase_k1() -> dict:
             max_rel, max_db = max(max_rel, rel), max(max_db, db)
             log("k1", profile=profile, case=case, batch=batch, n=n,
                 rel_err=f"{rel:.3e}", db_err=f"{db:.3e}")
-            db_tol = DB_TOL if cfg.n_mels <= 128 and profile != "whisper" else DB_TOL_MANY_MELS
+            db_tol = DB_TOL if cfg.n_mels <= 128 and profile not in ("whisper", "voxtral") else DB_TOL_MANY_MELS
             if rel > REL_TOL or db > db_tol:
                 raise AssertionError(
                     f"K1 {profile}/{case}: kernel disagrees with plain (rel {rel:.3e} > "
@@ -1476,6 +1498,79 @@ def phase_whisper() -> dict:
     ms = cuda_ms(lambda: score(wav), 3)
     log("whisper", part="scorer", batch=16, ms_per_call=f"{ms:.1f}", utt_per_s=f"{16e3 / ms:.2f}",
         launches=counts["wave_mel"], peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del model, score, wav, scores
+    free()
+    return {"wave_mel": 2}
+
+
+def voxtral_rows(seed: int) -> torch.Tensor:
+    """2 300-s clips on the CPU, ``whisper_rows``' recipe window by window
+    at a level of its own (0.02-0.5), so a window's max differs from its
+    clip's: clip 0 whole, clip 1 a 65-s clip zero-padded to 300 s, as
+    ``cli score`` pads it."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.cat([whisper_rows(seed + i).flatten()[:VOXTRAL_SAMPLES] for i in range(2)]).view(2, -1)
+    wins = rows.view(2, 10, WHISPER_MHFA_SAMPLES)
+    peaks = wins.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    levels = torch.logspace(math.log10(0.02), math.log10(0.5), 20)[torch.randperm(20, generator=g)].view(2, 10, 1)
+    rows = (wins / peaks * levels).view(2, -1)
+    rows[1, 65 * SR:] = 0.0
+    return rows
+
+
+def phase_voxtral() -> dict:
+    """Voxtral-Mini-3B as a detector on the card, at the published widths
+    and the voxtral-detect cell's shapes: the whole-clip log-mel in windows
+    (``whisper_log_mel_windows``) of 2 300-s clips (``voxtral_rows``)
+    against the plain chain on the CPU, its frames at the windows' edges
+    apart, one ``wave_mel`` launch; a log-mel of each window alone misses
+    by far more than the bound; then one ``make_voxtral_detect_scorer``
+    call on those clips: exactly one K1 launch and no other hand-written
+    kernel, 20 windows encoded and 7,540 decoder positions a call. Returns
+    the launches."""
+    cfg = WHISPER_LARGE_V3.mel
+    frames = 2 * WHISPER_LARGE_V3.positions
+    cpu_wav = voxtral_rows(31)
+    wav = cpu_wav.to(DEVICE)
+    with torch.inference_mode():
+        got, counts = run_counted(lambda: whisper_log_mel_windows(wav, cfg, frames))
+        if counts["wave_mel"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"whisper_log_mel_windows: launches {counts}, want one wave_mel")
+        want = whisper_log_mel_windows(cpu_wav, cfg, frames)
+        if got.shape != (2, 10, cfg.n_mels, frames) or want.shape != got.shape:
+            raise AssertionError(f"whisper_log_mel_windows: shape {tuple(got.shape)}")
+        diff = (got.cpu() - want).abs()
+        err = float(diff.max())
+        edge = float(diff[..., [0, 1, 2, -3, -2, -1]].max())  # the frames whose DFT rows cross a window edge
+        alone = whisper_log_mel(cpu_wav.view(20, WHISPER_MHFA_SAMPLES), cfg).view(2, 10, cfg.n_mels, frames)
+        fault = float((alone - want).abs().max())
+    log("voxtral", part="log_mel", clips=2, windows=20, err=f"{err:.3e}", edge_err=f"{edge:.3e}",
+        per_window_err=f"{fault:.3e}", launches=counts["wave_mel"])
+    if err > WHISPER_LOGMEL_TOL:
+        raise AssertionError(f"whisper_log_mel_windows: card vs CPU {err:.3e} > {WHISPER_LOGMEL_TOL}")
+    if fault < 100 * WHISPER_LOGMEL_TOL:
+        raise AssertionError(f"whisper_log_mel_windows: a log-mel of each window alone reads {fault:.3e}, "
+                             "too near the bound to be seen")
+    del got, want, alone, diff
+    free()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = init_voxtral_detect(seed=0, device=DEVICE)
+    score = make_voxtral_detect_scorer(model)
+    score(wav)  # warm: cuBLAS and the memory-efficient attention pick their kernels
+    reset_work_counts()
+    scores, counts = run_counted(lambda: score(wav))
+    work = work_counts()
+    if counts["wave_mel"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"make_voxtral_detect_scorer: launches {counts}, want one wave_mel")
+    if work != {"voxtral.calls": 1, "voxtral.windows": 20, "voxtral.positions": 2 * 3770}:
+        raise AssertionError(f"make_voxtral_detect_scorer: work counts {work}")
+    if scores.shape != (2,) or not torch.isfinite(scores).all():
+        raise AssertionError(f"make_voxtral_detect_scorer: bad scores {scores}")
+    ms = cuda_ms(lambda: score(wav), 2)
+    log("voxtral", part="scorer", clips=2, ms_per_call=f"{ms:.1f}", clips_per_s=f"{2e3 / ms:.3f}",
+        launches=counts["wave_mel"], windows=work["voxtral.windows"], positions=work["voxtral.positions"],
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     del model, score, wav, scores
     free()
     return {"wave_mel": 2}
@@ -3331,6 +3426,7 @@ def main() -> int:
     launches["cqcc"] += fused["cqcc"]
     launches["gmm_llr"] += fused["gmm_llr"]
     launches["wave_mel"] += timed_phase(phase_whisper)["wave_mel"]
+    launches["wave_mel"] += timed_phase(phase_voxtral)["wave_mel"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
