@@ -30,7 +30,11 @@ tokens at the last prompt position.
    down(silu(gate(x)) up(x))`` with ``x = RMSNorm(h)``; 32 query heads and
    8 KV heads of 128, query head ``h`` reading KV head ``h // 4``; RoPE
    (theta 1e8) on q and k in the rotate-half convention; causal attention
-   (``lm_attend``); no biases.
+   (``lm_attend``); no biases. On the card under inference the seven
+   projections run on K7 (``ops/split_gemm.py``: float32 products on the
+   tensor cores at float32 accuracy), q|k|v and gate|up each in one launch
+   over their weights side by side: 4 launches a layer, counted as
+   ``split_gemm``.
 6. The final RMSNorm and the untied head at the last position only (the
    published ``logits_to_keep=1``): ``(B, vocab)`` logits, of which the score
    is ``logit[answer_ids[0]] - logit[answer_ids[1]]``.
@@ -57,6 +61,7 @@ from torch import nn
 from audioanalysisdetector_tpu_torch.frontend.mel import whisper_log_mel_windows
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import split_heads
 from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3, WhisperConfig, WhisperEncoder
+from audioanalysisdetector_tpu_torch.ops import split_gemm
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
@@ -154,7 +159,9 @@ def lm_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
 
 class DecoderLayer(nn.Module):
-    """One Llama-equation decoder layer over ``(B, T, hidden)``."""
+    """One Llama-equation decoder layer over ``(B, T, hidden)``. Its seven
+    projections run on K7 in four launches (``project``) on the card under
+    inference, and through ``F.linear`` elsewhere."""
 
     def __init__(self, cfg: VoxtralConfig):
         super().__init__()
@@ -170,13 +177,27 @@ class DecoderLayer(nn.Module):
         self.up = nn.Linear(d, cfg.ffn, bias=False)
         self.down = nn.Linear(cfg.ffn, d, bias=False)
 
+        # K7's weight planes, one per launch: q|k|v, o, gate|up and down
+        self.planes = {name: split_gemm.WeightPlanes() for name in ("qkv", "o", "ffn", "down")}
+
+    def project(self, x: torch.Tensor, name: str, *linears: nn.Linear) -> tuple[torch.Tensor, ...]:
+        """Each of ``linears`` (no biases) over ``x``: one K7 launch for all
+        of them (``ops/split_gemm.py``) where ``refusals`` names no reason
+        for any, else each module as it is (``F.linear``)."""
+        if any(split_gemm.refusals(x, lin.weight) for lin in linears):
+            return tuple(lin(x) for lin in linears)
+        return split_gemm.split_linear(x, tuple(lin.weight for lin in linears), self.planes[name])
+
     def forward(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         x = self.attn_norm(h)
-        q = apply_rope(split_heads(self.q(x), self.heads), cos, sin)
-        k = apply_rope(split_heads(self.k(x), self.kv_heads), cos, sin)
-        h = h + self.o(lm_attend(q, k, split_heads(self.v(x), self.kv_heads)))
-        x = self.ffn_norm(h)
-        return h + self.down(F.silu(self.gate(x)) * self.up(x))
+        q, k, v = self.project(x, "qkv", self.q, self.k, self.v)
+        q = apply_rope(split_heads(q, self.heads), cos, sin)
+        k = apply_rope(split_heads(k, self.kv_heads), cos, sin)
+        (o,) = self.project(lm_attend(q, k, split_heads(v, self.kv_heads)), "o", self.o)
+        h = h + o
+        gate, up = self.project(self.ffn_norm(h), "ffn", self.gate, self.up)
+        (down,) = self.project(F.silu(gate) * up, "down", self.down)
+        return h + down
 
 
 class Projector(nn.Module):

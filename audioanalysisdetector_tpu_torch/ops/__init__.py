@@ -16,6 +16,10 @@
   GMMs' log-likelihoods, masked mean) in one launch;
   ``score/fused.py::arm_scores`` routes to it, and its ``padding_mask`` +
   ``masked_llr`` are K6's plain version.
+- ``split_gemm``   K7: float32 ``x W^T`` on the tensor cores at float32
+  accuracy (three bf16 planes an operand, six part products); the Voxtral
+  decoder's projections route to it, and ``split_gemm_reference`` is its
+  plain version.
 
 Each wrapper runs its plain version on a CPU tensor (``on_card`` is False;
 K5's and K6's routers keep such a tensor on their plain path themselves)
@@ -23,8 +27,11 @@ and hands a CUDA tensor's operands to ``launch``, the one launch path: it
 refuses an input that needs a backward, calls the C entry point that
 ``_build.entry_point`` loaded on the current stream, and counts the launch
 in the ledger. ``launch_counts`` and ``reset_launch_counts`` read and zero
-it: each kernel's launches, ``ct_mel.reflect``, K3's launches on a raw
-waveform (the center reflect pad folded into its frame addressing),
+it: each kernel's launches, ``split_gemm.planes``, K7's launches that lay
+a float32 matrix out as its bf16 planes (the activations before each
+product, a weight when it is first used or has changed), ``ct_mel.reflect``,
+K3's launches on a raw waveform (the center reflect pad folded into its
+frame addressing),
 ``ct_mel.db``, K3's launches that write the log-mel in dB (``power_to_db``
 in its epilogue), and ``lstm_scan.h32``, K4's hidden-32 kernel (its
 hidden-128 kernel counts on ``lstm_scan``). A new kernel adds its name to
@@ -39,7 +46,7 @@ import torch
 
 LAUNCH_COUNTERS = (
     "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "lstm_scan.h32",
-    "cqcc", "gmm_llr",
+    "cqcc", "gmm_llr", "split_gemm", "split_gemm.planes",
 )
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads

@@ -14,7 +14,10 @@ each print their lines:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
    ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` and
-   ``ops/csrc/lstm_scan_h32.cu`` (K4), ``ops/csrc/cqcc.cu`` (K5) and ``ops/csrc/gmm_llr.cu`` (K6) with nvcc, one process each, in parallel, and counts the tensor-core (``HGMMA``) instructions in wave_mel's SASS
+   ``ops/csrc/lstm_scan_h32.cu`` (K4), ``ops/csrc/cqcc.cu`` (K5),
+   ``ops/csrc/gmm_llr.cu`` (K6) and ``ops/csrc/split_gemm.cu`` (K7) with
+   nvcc, one process each, in parallel, and counts the tensor-core
+   (``HGMMA``) instructions in wave_mel's and split_gemm's SASS
    (``cuobjdump -sass``): none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
@@ -67,6 +70,15 @@ each print their lines:
    empty rows alike; the arm's device work K6 alone; the kernel and plain
    times in turns beside the bound at B=8192; refused inputs (a frame
    transform, grad) keep the plain arm;
+5e. K7: ``split_gemm`` (float32 products on the tensor cores at float32
+   accuracy): its split kernel bitwise ``plane_layout``; at the Voxtral
+   decoder's seven projections (M = 7,540) and at ragged M (1, 63, 129,
+   3,770) its error against float64, relative to sum |x| |w|, beside
+   cuBLAS's fp32 (TF32 off: at most twice it) and TF32 (at least 100 times
+   it); q|k|v side by side bitwise each alone; the four launches of a
+   decoder layer timed against ``torch.matmul`` in fp32 and the plain
+   version, in turns, beside the bound (six bf16 products at 989 TFLOP/s;
+   the SIMT bound beside it), and summed over the 30 layers of a call;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -101,9 +113,11 @@ each print their lines:
     their own) against the plain chain on the CPU, the frames at window
     edges read apart, a log-mel of each window alone far off; then one
     ``make_voxtral_detect_scorer`` call at the published widths (4.68 B
-    parameters) on those clips: exactly one K1 launch and no other
-    hand-written kernel, 20 windows and 7,540 decoder positions
-    (``work_counts``), ms per call and peak memory;
+    parameters) on those clips: one K1 launch and 120 K7 launches with
+    their 120 activation splits, no other hand-written kernel, 20 windows
+    and 7,540 decoder positions (``work_counts``), ms per call and peak
+    memory; the decoder alone on K7's route (no SIMT SGEMM) and on
+    ``F.linear``'s, its time and the scores of the two routes;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -297,6 +311,7 @@ from audioanalysisdetector_tpu_torch.ops import gmm_llr as k6
 from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
+from audioanalysisdetector_tpu_torch.ops import split_gemm as k7
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
     WHISPER_MHFA_SAMPLES,
@@ -442,6 +457,8 @@ KERNEL_SOURCES = {
                       "no TPU kernel: cuDNN's RNN_blockPersist_fp_LSTM under the mel model's nn.LSTM (hidden 32)"),
     "cqcc": ("ops/csrc/cqcc.cu", "no TPU kernel: the plain CQT -> CQCC chain's SGEMMs, cat and elementwise passes"),
     "gmm_llr": ("ops/csrc/gmm_llr.cu", "no TPU kernel: the plain GMM arm's SGEMMs, elementwise and reduction passes"),
+    "split_gemm": ("ops/csrc/split_gemm.cu",
+                   "no TPU kernel: cuBLAS's SIMT SGEMM under nn.Linear in the Voxtral decoder's projections"),
 }
 # K4 against its plain version, both fp32 on the card: the same steps, the
 # h W_hh^T sums taken in other orders over 63 steps (an H100 read 1.8e-7)
@@ -673,7 +690,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel", "lstm_scan", "lstm_scan_h32", "cqcc", "gmm_llr")
+    libs = ("wave_mel", "ct_mel", "lstm_scan", "lstm_scan_h32", "cqcc", "gmm_llr", "split_gemm")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -682,10 +699,11 @@ def phase_build() -> None:
         for line in info["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip(), flush=True)
-    n = hgmma_count(_build.build_log["wave_mel"]["path"])
-    log("build", source="wave_mel.cu", hgmma=n)
-    if n == 0:
-        raise AssertionError("wave_mel.cu built without tensor-core (HGMMA) instructions")
+    for name in ("wave_mel", "split_gemm"):
+        n = hgmma_count(_build.build_log[name]["path"])
+        log("build", source=f"{name}.cu", hgmma=n)
+        if n == 0:
+            raise AssertionError(f"{name}.cu built without tensor-core (HGMMA) instructions")
     log("build", wall_s=f"{time.perf_counter() - t0:.2f}")
 
 
@@ -1209,6 +1227,137 @@ def phase_k6() -> dict:
     return {**t, **bound, "max_abs_err": worst}
 
 
+# K7 at the Voxtral decoder's shapes, M = B T = 2 clips x 3,770 positions:
+# the seven projections (name, N, K), then the four launches a layer makes
+# (q|k|v and gate|up side by side)
+K7_M = 2 * 3770
+K7_SHAPES = (("q", 4096, 3072), ("k", 1024, 3072), ("v", 1024, 3072), ("o", 3072, 4096),
+             ("gate", 8192, 3072), ("up", 8192, 3072), ("down", 3072, 8192))
+K7_LAUNCHES = (("qkv", 6144, 3072), ("o", 3072, 4096), ("ffn", 16384, 3072), ("down", 3072, 8192))
+K7_RAGGED_M = (1, 63, 129, 3770)
+BF16_TC_FLOP_PER_S = 989e12  # the tensor cores' dense bf16 rate (data sheet, 700 W)
+# K7's error against a float64 product, relative to sum |x| |w| (its largest
+# and its mean), may be at most this times cuBLAS's fp32 SGEMM's (TF32 off)
+# on the same operands, and must lie this far below TF32's
+K7_SGEMM_RATIO = 2.0
+K7_TF32_MARGIN = 100.0
+
+
+def k7_bound(m: int, n: int, k: int) -> dict:
+    """K7's least time: its six bf16 products, 6 x 2 M N K, at the tensor
+    cores' bf16 rate, or the bytes (x and W read once as float32, y written
+    once) at HBM_BYTES_PER_S, whichever is larger; beside it the same
+    product's 2 M N K at FP32_FLOP_PER_S, the SIMT bound of cuBLAS's SGEMM."""
+    ops_ms = 6 * 2 * m * n * k / BF16_TC_FLOP_PER_S * 1e3
+    bytes_ms = 4 * (m * k + n * k + m * n) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "simt_ms": 2 * m * n * k / FP32_FLOP_PER_S * 1e3}
+
+
+def k7_errors(y: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> tuple[float, float]:
+    """The largest and the mean of ``|y - x w^T|`` over ``|x| |w|^T``, both
+    products in float64 on the card."""
+    x64, w64 = x.double(), w.double()
+    rel = (y.double() - x64 @ w64.T).abs_().div_(x64.abs() @ w64.abs().T)
+    return float(rel.max()), float(rel.mean())
+
+
+def k7_case(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """K7, cuBLAS fp32 and cuBLAS TF32 on one pair of operands: each one's
+    errors (``k7_errors``), K7's launches, and whether it holds to the
+    bounds on its errors."""
+    planes = k7.WeightPlanes()
+    with torch.inference_mode():
+        got, counts = run_counted(lambda: k7.split_linear(x, (w,), planes)[0])
+        err = k7_errors(got, x, w)
+        del got
+        sgemm = k7_errors(x @ w.T, x, w)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = k7_errors(x @ w.T, x, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    # cuBLAS takes a single row through its GEMV, which has no TF32 path:
+    # there the TF32 product is the fp32 one, and the margin is not asked
+    ok = (counts["split_gemm"] == 1 and counts["split_gemm.planes"] == 2 and sum(counts.values()) == 3
+          and all(e <= K7_SGEMM_RATIO * s for e, s in zip(err, sgemm))
+          and (x.shape[0] == 1 or all(K7_TF32_MARGIN * e <= t for e, t in zip(err, tf32))))
+    return {"err": err, "sgemm": sgemm, "tf32": tf32, "counts": counts, "ok": ok}
+
+
+def phase_k7() -> dict:
+    """K7 (``ops/split_gemm.py``) on the card: its split kernel bitwise
+    ``plane_layout``; at the seven decoder shapes (M = 7,540) and at ragged
+    M, its error against float64 beside cuBLAS's fp32 (TF32 off) and TF32
+    products on the same operands; q|k|v side by side bitwise the three
+    alone; then the four launches of a layer timed (activation split
+    included) against ``torch.matmul`` in fp32 (a yardstick the port does
+    not call), in turns, beside the bound. Returns the numbers of a
+    decoder call: 30 layers of the four launches."""
+    g = torch.Generator(device=DEVICE).manual_seed(71)
+    x = torch.randn(129, 3072, generator=g, device=DEVICE)
+    w = torch.randn(1024, 3072, generator=g, device=DEVICE) * 0.02
+    with torch.inference_mode():
+        for rows, tile in ((x, k7.BLOCK_M), (w, k7.BLOCK_N)):
+            if not torch.equal(k7._planes(rows, tile), k7.plane_layout(rows, tile)):
+                raise AssertionError(f"K7: split_planes at {tuple(rows.shape)} differs from plane_layout")
+        ws = [torch.randn(n, 3072, generator=g, device=DEVICE) * 0.02 for n in (4096, 1024, 1024)]
+        together = k7.split_linear(x, tuple(ws), k7.WeightPlanes())
+        if not all(torch.equal(a, k7.split_linear(x, (wi,), k7.WeightPlanes())[0]) for a, wi in zip(together, ws)):
+            raise AssertionError("K7: q|k|v side by side differs from the three products alone")
+        plain_err = float((k7.split_linear(x, (w,), k7.WeightPlanes())[0] - k7.split_gemm_reference(x, w)).abs().max())
+    log("k7", part="layout", planes_equal=True, side_by_side_equal=True, err_vs_plain=f"{plain_err:.3e}")
+    del x, w, ws, together
+    failures = []
+    cases = [(name, K7_M, n, k) for name, n, k in K7_SHAPES] + [(f"ragged{m}", m, 1024, 3072) for m in K7_RAGGED_M]
+    for name, m, n, k in cases:
+        x = torch.randn(m, k, generator=g, device=DEVICE)
+        w = torch.randn(n, k, generator=g, device=DEVICE) * 0.02
+        c = k7_case(x, w)
+        log("k7", shape=name, m=m, n=n, k=k, err_max=f"{c['err'][0]:.3e}", err_mean=f"{c['err'][1]:.3e}",
+            sgemm_err_max=f"{c['sgemm'][0]:.3e}", sgemm_err_mean=f"{c['sgemm'][1]:.3e}",
+            tf32_err_max=f"{c['tf32'][0]:.3e}", tf32_err_mean=f"{c['tf32'][1]:.3e}",
+            launches=c["counts"]["split_gemm"], ok=c["ok"])
+        if not c["ok"]:
+            failures.append(name)
+        del x, w
+        free()
+    total = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "simt_ms": 0.0, "split_ms": 0.0}
+    for name, n, k in K7_LAUNCHES:
+        x = torch.randn(K7_M, k, generator=g, device=DEVICE)
+        w = torch.randn(n, k, generator=g, device=DEVICE) * 0.02
+        planes = k7.WeightPlanes()
+        with torch.inference_mode():
+            kern = lambda: k7.split_linear(x, (w,), planes)  # noqa: E731
+            lib = lambda: torch.matmul(x, w.T)  # noqa: E731
+            kern()
+            lib()
+            runs = [cuda_ms(f, 5) for f in (kern, lib, lib, kern)]
+            split_ms = cuda_ms(lambda: k7._planes(x, k7.BLOCK_M), 5)
+            plain_ms = cuda_ms(lambda: k7.split_gemm_reference(x, w), 1)
+        t = {"ms": (runs[0] + runs[3]) / 2, "library_ms": (runs[1] + runs[2]) / 2, "plain_ms": plain_ms}
+        bound = k7_bound(K7_M, n, k)
+        flop = 2 * K7_M * n * k
+        log("k7", launch=name, m=K7_M, n=n, k=k, card_ms=f"{t['ms']:.3f}", card_runs="%.3f,%.3f" % (runs[0], runs[3]),
+            split_ms=f"{split_ms:.3f}", plain_ms=f"{plain_ms:.1f}", library_ms=f"{t['library_ms']:.3f}",
+            library_runs="%.3f,%.3f" % (runs[1], runs[2]), bound_ms=f"{bound['bound_ms']:.3f}",
+            bound_by=bound["bound_by"], simt_bound_ms=f"{bound['simt_ms']:.3f}",
+            share_of_bound=f"{bound['bound_ms'] / t['ms']:.4f}", fp32_tflops=f"{flop / t['ms'] / 1e9:.1f}",
+            library_tflops=f"{flop / t['library_ms'] / 1e9:.1f}")
+        for key in total:
+            total[key] += 30 * {**t, **bound, "split_ms": split_ms}[key]
+        del x, w, planes
+        free()
+    log("k7", part="decoder_call", layers=30, launches=120, card_ms=f"{total['ms']:.1f}",
+        split_ms=f"{total['split_ms']:.1f}", plain_ms=f"{total['plain_ms']:.1f}",
+        library_ms=f"{total['library_ms']:.1f}",
+        bound_ms=f"{total['bound_ms']:.1f}", simt_bound_ms=f"{total['simt_ms']:.1f}",
+        share_of_bound=f"{total['bound_ms'] / total['ms']:.4f}")
+    if failures:
+        raise AssertionError(f"K7: errors past the bounds at {failures}")
+    return {**total, "bound_by": "operations", "max_abs_err": plain_err}
+
+
 def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     """Independent float64 mel power: numpy rfft of reflect-padded frames."""
     pad = cfg.n_fft // 2
@@ -1518,6 +1667,13 @@ def voxtral_rows(seed: int) -> torch.Tensor:
     return rows
 
 
+VOXTRAL_K7_LAUNCHES = 30 * 4  # a scorer call: q|k|v, o, gate|up and down in each of 30 decoder layers
+# the scores on K7's route and on F.linear's, float32 roundings of the
+# decoder's projections apart (an H100 read 1.19e-6): held to the
+# voxtral-detect cell's score_gap limit against its float64 reference
+VOXTRAL_ROUTE_GAP = 5e-5
+
+
 def phase_voxtral() -> dict:
     """Voxtral-Mini-3B as a detector on the card, at the published widths
     and the voxtral-detect cell's shapes: the whole-clip log-mel in windows
@@ -1525,9 +1681,13 @@ def phase_voxtral() -> dict:
     against the plain chain on the CPU, its frames at the windows' edges
     apart, one ``wave_mel`` launch; a log-mel of each window alone misses
     by far more than the bound; then one ``make_voxtral_detect_scorer``
-    call on those clips: exactly one K1 launch and no other hand-written
-    kernel, 20 windows encoded and 7,540 decoder positions a call. Returns
-    the launches."""
+    call on those clips: one K1 launch, 120 K7 launches (four a decoder
+    layer) and their 120 activation splits and no other hand-written
+    kernel (the first call also splits the weights), 20 windows encoded and
+    7,540 decoder positions a call; the decoder alone over the call's input
+    launches no SIMT SGEMM, its time against the ``F.linear`` route's, and
+    the scores of the two routes within ``VOXTRAL_ROUTE_GAP``. Returns the
+    launches."""
     cfg = WHISPER_LARGE_V3.mel
     frames = 2 * WHISPER_LARGE_V3.positions
     cpu_wav = voxtral_rows(31)
@@ -1557,23 +1717,49 @@ def phase_voxtral() -> dict:
     torch.cuda.reset_peak_memory_stats()
     model = init_voxtral_detect(seed=0, device=DEVICE)
     score = make_voxtral_detect_scorer(model)
-    score(wav)  # warm: cuBLAS and the memory-efficient attention pick their kernels
+    _, warm = run_counted(lambda: score(wav))  # cuBLAS and the attention pick their kernels; K7 splits the weights
     reset_work_counts()
     scores, counts = run_counted(lambda: score(wav))
     work = work_counts()
-    if counts["wave_mel"] != 1 or sum(counts.values()) != 1:
-        raise AssertionError(f"make_voxtral_detect_scorer: launches {counts}, want one wave_mel")
+    want = {**dict.fromkeys(counts, 0), "wave_mel": 1, "split_gemm": VOXTRAL_K7_LAUNCHES,
+            "split_gemm.planes": VOXTRAL_K7_LAUNCHES}
+    if counts != want or warm["split_gemm.planes"] != 2 * VOXTRAL_K7_LAUNCHES:
+        raise AssertionError(f"make_voxtral_detect_scorer: launches {counts} (first call {warm}), want {want}")
     if work != {"voxtral.calls": 1, "voxtral.windows": 20, "voxtral.positions": 2 * 3770}:
         raise AssertionError(f"make_voxtral_detect_scorer: work counts {work}")
     if scores.shape != (2,) or not torch.isfinite(scores).all():
         raise AssertionError(f"make_voxtral_detect_scorer: bad scores {scores}")
     ms = cuda_ms(lambda: score(wav), 2)
     log("voxtral", part="scorer", clips=2, ms_per_call=f"{ms:.1f}", clips_per_s=f"{2e3 / ms:.3f}",
-        launches=counts["wave_mel"], windows=work["voxtral.windows"], positions=work["voxtral.positions"],
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    del model, score, wav, scores
+        launches=counts["wave_mel"], split_gemm=counts["split_gemm"], windows=work["voxtral.windows"],
+        positions=work["voxtral.positions"], peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+
+    # the decoder alone over the call's input: no SIMT SGEMM on K7's route;
+    # its time and the scores against F.linear's route (refusals made to refuse)
+    with torch.inference_mode():
+        x = model.embed_prompt(model.projector(model.encode(model.features(wav))))
+        k7_wall, k7_busy, kernels = device_breakdown(lambda: model.decode(x), iters=2, top=64)
+        sgemm = [name for _, _, name in kernels if "f32f32" in name or "sgemm" in name.lower()]
+        refusals = k7.refusals
+        k7.refusals = lambda x, w: ["forced"]
+        try:
+            lib_scores = score(wav)
+            lib_wall, lib_busy, lib_kernels = device_breakdown(lambda: model.decode(x), iters=2, top=64)
+        finally:
+            k7.refusals = refusals
+        gap = float((scores - lib_scores).abs().max())
+    log("voxtral", part="decoder", k7_ms=f"{k7_wall:.1f}", k7_device_ms=f"{k7_busy:.1f}",
+        f_linear_ms=f"{lib_wall:.1f}", f_linear_device_ms=f"{lib_busy:.1f}", score_gap=f"{gap:.3e}",
+        sgemm_kernels=len(sgemm), top_kernels="; ".join(f"{ms:.1f}ms x{n} {name[:60]}" for ms, n, name in kernels[:5]))
+    print("  f_linear route: " + "; ".join(f"{ms:.1f}ms x{n} {name[:60]}" for ms, n, name in lib_kernels[:5]),
+          flush=True)
+    if sgemm:
+        raise AssertionError(f"voxtral decoder: SIMT SGEMM launches on K7's route: {sgemm}")
+    if gap > VOXTRAL_ROUTE_GAP:
+        raise AssertionError(f"voxtral: scores on K7's and F.linear's routes {gap:.3e} apart")
+    del model, score, wav, scores, x
     free()
-    return {"wave_mel": 2}
+    return {"wave_mel": 2, "split_gemm": 2 * VOXTRAL_K7_LAUNCHES}
 
 
 def phase_fused() -> dict:
@@ -3416,8 +3602,9 @@ def main() -> int:
     k4_timed = timed_phase(phase_k4)
     k5_timed = timed_phase(phase_k5)
     k6_timed = timed_phase(phase_k6)
+    k7_timed = timed_phase(phase_k7)
     launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0,
-                "lstm_scan.h32": 0, "cqcc": 0, "gmm_llr": 0}
+                "lstm_scan.h32": 0, "cqcc": 0, "gmm_llr": 0, "split_gemm": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
@@ -3426,7 +3613,9 @@ def main() -> int:
     launches["cqcc"] += fused["cqcc"]
     launches["gmm_llr"] += fused["gmm_llr"]
     launches["wave_mel"] += timed_phase(phase_whisper)["wave_mel"]
-    launches["wave_mel"] += timed_phase(phase_voxtral)["wave_mel"]
+    voxtral = timed_phase(phase_voxtral)
+    launches["wave_mel"] += voxtral["wave_mel"]
+    launches["split_gemm"] += voxtral["split_gemm"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
@@ -3441,6 +3630,7 @@ def main() -> int:
         "lstm_scan.h32": k4_timed["lstm_scan.h32"],
         "cqcc": k5_timed,
         "gmm_llr": k6_timed,
+        "split_gemm": k7_timed,
     }
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
