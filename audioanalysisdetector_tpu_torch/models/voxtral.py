@@ -34,7 +34,9 @@ tokens at the last prompt position.
    projections run on K7 (``ops/split_gemm.py``: float32 products on the
    tensor cores at float32 accuracy), q|k|v and gate|up each in one launch
    over their weights side by side: 4 launches a layer, counted as
-   ``split_gemm``.
+   ``split_gemm``; the attention runs on K8 (``ops/lm_attention.py``: the
+   same split products, each KV head read once for its four query heads),
+   one launch a layer, counted as ``lm_attention``.
 6. The final RMSNorm and the untied head at the last position only (the
    published ``logits_to_keep=1``): ``(B, vocab)`` logits, of which the score
    is ``logit[answer_ids[0]] - logit[answer_ids[1]]``.
@@ -61,7 +63,7 @@ from torch import nn
 from audioanalysisdetector_tpu_torch.frontend.mel import whisper_log_mel_windows
 from audioanalysisdetector_tpu_torch.models.wav2vec2 import split_heads
 from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3, WhisperConfig, WhisperEncoder
-from audioanalysisdetector_tpu_torch.ops import split_gemm
+from audioanalysisdetector_tpu_torch.ops import lm_attention, split_gemm
 from audioanalysisdetector_tpu_torch.utils.profiling import span
 
 
@@ -145,13 +147,18 @@ def lm_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """Causal grouped-query attention: ``q`` ``(B, H, T, d)``, ``k`` and
     ``v`` ``(B, H_kv, T, d)``, query head ``h`` reading KV head ``h // (H /
     H_kv)``; ``softmax(q k^T / sqrt(d) + causal) v`` merged back to ``(B, T,
-    H d)``, under the ``lm.attend`` span. K and V are expanded to ``H``
-    heads first: torch's float32 fused kernel (the memory-efficient CUTLASS
-    one) takes no ``enable_gqa``, which would send the call to the math path
-    and its ``(B, H, T, T)`` scores. ``is_causal`` keeps it on the fused
-    kernel: a float mask would be materialised."""
+    H d)``, under the ``lm.attend`` span. K8 (``ops/lm_attention.py``)
+    computes it where ``lm_attention.refusals`` names no reason: on the
+    card, in float32, under inference, at a head size of 128. Elsewhere K
+    and V are expanded to ``H`` heads first: torch's float32 fused kernel
+    (the memory-efficient CUTLASS one) takes no ``enable_gqa``, which would
+    send the call to the math path and its ``(B, H, T, T)`` scores.
+    ``is_causal`` keeps it on the fused kernel: a float mask would be
+    materialised."""
     b, h, t, d = q.shape
     with span("lm.attend"):
+        if not lm_attention.refusals(q, k, v):
+            return lm_attention.lm_attention(q, k, v)
         group = h // k.shape[1]
         k, v = (y.repeat_interleave(group, dim=1) for y in (k, v))
         a = F.scaled_dot_product_attention(q, k, v, is_causal=True)

@@ -20,6 +20,11 @@
   accuracy (three bf16 planes an operand, six part products); the Voxtral
   decoder's projections route to it, and ``split_gemm_reference`` is its
   plain version.
+- ``lm_attention`` K8: causal grouped-query attention in float32 on the
+  tensor cores at float32 accuracy (K7's split products, an online
+  softmax, each KV tile read once for the query heads that share it); the
+  Voxtral decoder's ``lm_attend`` routes to it, and
+  ``lm_attention_reference`` is its plain version.
 
 Each wrapper runs its plain version on a CPU tensor (``on_card`` is False;
 K5's and K6's routers keep such a tensor on their plain path themselves)
@@ -33,9 +38,10 @@ product, a weight when it is first used or has changed), ``ct_mel.reflect``,
 K3's launches on a raw waveform (the center reflect pad folded into its
 frame addressing),
 ``ct_mel.db``, K3's launches that write the log-mel in dB (``power_to_db``
-in its epilogue), and ``lstm_scan.h32``, K4's hidden-32 kernel (its
-hidden-128 kernel counts on ``lstm_scan``). A new kernel adds its name to
-``LAUNCH_COUNTERS``.
+in its epilogue), ``lstm_scan.h32``, K4's hidden-32 kernel (its
+hidden-128 kernel counts on ``lstm_scan``), and ``lm_attention.planes``,
+K8's launches that lay q, k and v out as its bf16 planes. A new kernel
+adds its name to ``LAUNCH_COUNTERS``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 
 LAUNCH_COUNTERS = (
     "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "lstm_scan.h32",
-    "cqcc", "gmm_llr", "split_gemm", "split_gemm.planes",
+    "cqcc", "gmm_llr", "split_gemm", "split_gemm.planes", "lm_attention", "lm_attention.planes",
 )
 _counts = dict.fromkeys(LAUNCH_COUNTERS, 0)
 _counts_lock = threading.Lock()  # a serving thread may launch while another reads

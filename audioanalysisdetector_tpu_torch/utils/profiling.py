@@ -99,8 +99,9 @@ idle gaps by span path (``portbench/tools/span_readings.py``):
   (``models/voxtral.py``), once a call inside ``score.model``:
   ``voxtral.decoder_ms.score`` reads the decoder.
 - ``lm.attend``: ``models/voxtral.py::lm_attend``, one decoder layer's
-  causal grouped-query attention (the K/V expansion to the query heads,
-  SDPA, the merge transpose), 30 a call inside ``voxtral.decoder``:
+  causal grouped-query attention (on the card K8's split of q, k and v
+  and its launch; elsewhere the K/V expansion to the query heads, SDPA,
+  the merge transpose), 30 a call inside ``voxtral.decoder``:
   ``voxtral.lm_attention_roofline``.
 - ``mhfa.pool``: MHFA's layer mixes, compressions and attentive pooling
   (``models/mhfa.py``), inside ``score.model``: the pooling's device ms a

@@ -15,10 +15,11 @@ each print their lines:
 2. build: compiles ``ops/csrc/wave_mel.cu`` (K1 and K2),
    ``ops/csrc/ct_mel.cu`` (K3), ``ops/csrc/lstm_scan.cu`` and
    ``ops/csrc/lstm_scan_h32.cu`` (K4), ``ops/csrc/cqcc.cu`` (K5),
-   ``ops/csrc/gmm_llr.cu`` (K6) and ``ops/csrc/split_gemm.cu`` (K7) with
-   nvcc, one process each, in parallel, and counts the tensor-core
-   (``HGMMA``) instructions in wave_mel's and split_gemm's SASS
-   (``cuobjdump -sass``): none fails the phase;
+   ``ops/csrc/gmm_llr.cu`` (K6), ``ops/csrc/split_gemm.cu`` (K7) and
+   ``ops/csrc/lm_attention.cu`` (K8) with nvcc, one process each, in
+   parallel, and counts the tensor-core (``HGMMA``) instructions in
+   wave_mel's, split_gemm's and lm_attention's SASS (``cuobjdump -sass``):
+   none fails the phase;
 3. K1: ``wave_mel`` against ``wave_mel_reference`` in both mel profiles
    (random input at B=8192, a ragged batch of 13, silence, length 32001,
    whose rows are not 16-byte aligned), at n_fft 400 / hop 160 (the 25 ms
@@ -79,6 +80,15 @@ each print their lines:
    decoder layer timed against ``torch.matmul`` in fp32 and the plain
    version, in turns, beside the bound (six bf16 products at 989 TFLOP/s;
    the SIMT bound beside it), and summed over the 30 layers of a call;
+5f. K8: ``lm_attention`` (the Voxtral decoder's causal grouped-query
+   attention on the tensor cores at float32 accuracy): its split kernel
+   bitwise ``query_planes`` and ``kv_planes``; at the voxtral-detect cell's
+   shape (2 clips, 32 query and 8 KV heads of 128, 3,770 positions) and at
+   ragged shapes its error against float64 beside the expansion + SDPA
+   route's (PyTorch's float32 CUTLASS kernel: K8 no worse) and TF32's; its
+   time at the cell's shape against that route (``library_ms``) and its
+   plain version, in turns, beside the bound (six bf16 products at 989
+   TFLOP/s), the split alone, and over the 30 layers of a call;
 6. e2e: the scorer at B=8192 x 2 s in both profiles, against the same model
    fed the plain mel path, plus a float64 numpy check of the features, and
    a ``torch.profiler`` breakdown of one call (host wall, device kernel
@@ -113,11 +123,14 @@ each print their lines:
     their own) against the plain chain on the CPU, the frames at window
     edges read apart, a log-mel of each window alone far off; then one
     ``make_voxtral_detect_scorer`` call at the published widths (4.68 B
-    parameters) on those clips: one K1 launch and 120 K7 launches with
-    their 120 activation splits, no other hand-written kernel, 20 windows
-    and 7,540 decoder positions (``work_counts``), ms per call and peak
-    memory; the decoder alone on K7's route (no SIMT SGEMM) and on
-    ``F.linear``'s, its time and the scores of the two routes;
+    parameters) on those clips: one K1 launch, 120 K7 launches with
+    their 120 activation splits and 30 K8 launches with their 30 splits,
+    no other hand-written kernel, 20 windows and 7,540 decoder positions
+    (``work_counts``), ms per call and peak memory; the decoder alone on
+    K7's route (no SIMT SGEMM, no CUTLASS attention) and on ``F.linear``'s,
+    its time and the scores of the two routes; one ``lm_attend`` on K8's
+    route runs K8's two kernels and nothing else (no K/V expansion, no
+    merge copy), and the scores with K8 refused, within the cell's limit;
 10. train: 8192 two-second utterances made on the card (bonafide noise,
     spoof noise plus a seeded tone), log-mel at parity through K3 under
     ``torch.no_grad()``; 5 train steps of the full-width CNN-BiLSTM from one
@@ -237,6 +250,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audioanalysisdetector_tpu_torch.convert import (
     flax_to_torch_bilstm_classifier,
@@ -301,6 +315,7 @@ from audioanalysisdetector_tpu_torch.models.gmm import (
 from audioanalysisdetector_tpu_torch.models.layers import flax_init_
 from audioanalysisdetector_tpu_torch.models.mobilenet_mfca import MobileNetMFCA
 from audioanalysisdetector_tpu_torch.models.resnet import AntiSpoofingResNet, MoreFeaturesClassifier
+from audioanalysisdetector_tpu_torch.models import voxtral
 from audioanalysisdetector_tpu_torch.models.voxtral import reset_work_counts, work_counts
 from audioanalysisdetector_tpu_torch.models.whisper import WHISPER_LARGE_V3
 from audioanalysisdetector_tpu_torch.ops import _build, launch_counts, reset_launch_counts
@@ -312,6 +327,7 @@ from audioanalysisdetector_tpu_torch.ops import ct_mel as ctm
 from audioanalysisdetector_tpu_torch.ops import fused_logmel as flm
 from audioanalysisdetector_tpu_torch.ops import lstm_scan as k4
 from audioanalysisdetector_tpu_torch.ops import split_gemm as k7
+from audioanalysisdetector_tpu_torch.ops import lm_attention as k8
 from audioanalysisdetector_tpu_torch.ops import wave_mel as wm
 from audioanalysisdetector_tpu_torch.score.e2e import (
     WHISPER_MHFA_SAMPLES,
@@ -459,6 +475,9 @@ KERNEL_SOURCES = {
     "gmm_llr": ("ops/csrc/gmm_llr.cu", "no TPU kernel: the plain GMM arm's SGEMMs, elementwise and reduction passes"),
     "split_gemm": ("ops/csrc/split_gemm.cu",
                    "no TPU kernel: cuBLAS's SIMT SGEMM under nn.Linear in the Voxtral decoder's projections"),
+    "lm_attention": ("ops/csrc/lm_attention.cu",
+                     "no TPU kernel: the Voxtral decoder's K/V expansion, PyTorch's float32 CUTLASS attention "
+                     "(fmha_cutlassF_f32_aligned_64x128_rf_sm80) and the merge copy"),
 }
 # K4 against its plain version, both fp32 on the card: the same steps, the
 # h W_hh^T sums taken in other orders over 63 steps (an H100 read 1.8e-7)
@@ -690,7 +709,7 @@ def hgmma_count(library: str) -> int:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = ("wave_mel", "ct_mel", "lstm_scan", "lstm_scan_h32", "cqcc", "gmm_llr", "split_gemm")
+    libs = ("wave_mel", "ct_mel", "lstm_scan", "lstm_scan_h32", "cqcc", "gmm_llr", "split_gemm", "lm_attention")
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, libs))
     for name in libs:
@@ -699,7 +718,7 @@ def phase_build() -> None:
         for line in info["output"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip(), flush=True)
-    for name in ("wave_mel", "split_gemm"):
+    for name in ("wave_mel", "split_gemm", "lm_attention"):
         n = hgmma_count(_build.build_log[name]["path"])
         log("build", source=f"{name}.cu", hgmma=n)
         if n == 0:
@@ -1358,6 +1377,146 @@ def phase_k7() -> dict:
     return {**total, "bound_by": "operations", "max_abs_err": plain_err}
 
 
+# K8 at the voxtral-detect cell's attention: (B, H, H_kv, T), 2 clips, 32
+# query and 8 KV heads of 128 over 3,770 positions; then ragged shapes (one
+# position, tiles cut short, a group of 1, a shorter prompt)
+K8_CELL = (2, 32, 8, 3770)
+K8_RAGGED = ((1, 32, 8, 1), (2, 32, 8, 37), (1, 8, 8, 130), (2, 32, 8, 257), (1, 32, 8, 1000))
+# shapes whose TF32 route cuBLAS keeps in fp32 (an H100 read 1.4e-6 for 8
+# heads of 130 positions), and one position, where the softmax is 1
+K8_NO_TF32 = ((1, 32, 8, 1), (1, 8, 8, 130))
+# K8's error against float64 attention (its largest and its mean) may be at
+# most the expansion + SDPA route's (PyTorch's float32 CUTLASS kernel) on
+# the same operands, and must lie this far below TF32's (the math route
+# with its two products in TF32) where cuBLAS runs that in TF32
+K8_SDPA_RATIO = 1.0
+K8_TF32_MARGIN = 100.0
+
+
+def k8_bound(b: int, h: int, hk: int, t: int) -> dict:
+    """K8's least time: its six bf16 products over the causal pairs, 6 x 4
+    (T (T + 1) / 2) 128 a head, at the tensor cores' bf16 rate, or the bytes
+    (q, k and v read once as float32, the output written once) at
+    HBM_BYTES_PER_S, whichever is larger; beside it the same attention's
+    operations at the TF32 peak (the benchmark's
+    ``voxtral.lm_attention_roofline`` bound)."""
+    flop = 4 * b * h * t * (t + 1) / 2 * k8.HEAD_DIM
+    ops_ms = 6 * flop / BF16_TC_FLOP_PER_S * 1e3
+    bytes_ms = 4 * k8.HEAD_DIM * t * b * (2 * h + 2 * hk) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "tf32_ms": flop / 495e12 * 1e3, "flop": flop}
+
+
+def k8_operands(b: int, h: int, hk: int, t: int, seed: int) -> tuple[torch.Tensor, ...]:
+    """q, k and v as the decoder makes them: head views of one q|k|v projection."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    y = torch.randn(b, t, (h + 2 * hk) * k8.HEAD_DIM, generator=g, device=DEVICE)
+    q, k, v = y.split([h * k8.HEAD_DIM, hk * k8.HEAD_DIM, hk * k8.HEAD_DIM], dim=-1)
+    return tuple(x.view(b, t, n, k8.HEAD_DIM).transpose(1, 2) for x, n in ((q, h), (k, hk), (v, hk)))
+
+
+def k8_expanded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: slice, dtype: torch.dtype):
+    """Query heads ``heads`` of q and the KV heads they read, expanded, in ``dtype``."""
+    group = q.shape[1] // k.shape[1]
+    idx = torch.arange(q.shape[1], device=q.device)[heads] // group
+    return q[:, heads].to(dtype), k[:, idx].to(dtype), v[:, idx].to(dtype)
+
+
+def k8_errors(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, got: dict) -> dict:
+    """The largest and the mean of ``|y - attention|`` for each output of
+    ``got`` (``(B, T, H d)``), the attention in float64 on the card, and of
+    the TF32 math route's, 8 query heads at a time."""
+    b, h, t, d = q.shape
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    worst = {name: 0.0 for name in (*got, "tf32")}
+    total = dict.fromkeys(worst, 0.0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for h0 in range(0, h, 8):
+            heads = slice(h0, min(h0 + 8, h))
+            want = F.scaled_dot_product_attention(*k8_expanded(q, k, v, heads, torch.float64), is_causal=True)
+            qq, kk, vv = k8_expanded(q, k, v, heads, torch.float32)
+            s = (qq @ kk.transpose(-1, -2)).mul_(d ** -0.5).masked_fill_(~causal, -math.inf)
+            outs = {**{name: y.view(b, t, h, d).transpose(1, 2)[:, heads] for name, y in got.items()},
+                    "tf32": torch.softmax(s, dim=-1) @ vv}
+            del s
+            for name, y in outs.items():
+                err = (y.double() - want).abs_()
+                worst[name] = max(worst[name], float(err.max()))
+                total[name] += float(err.sum())
+            del want, outs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {name: (worst[name], total[name] / q.numel()) for name in worst}
+
+
+def k8_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The route K8 replaces (a yardstick the port's card route no longer
+    calls): K/V expanded to the query heads, PyTorch's float32 SDPA, the merge."""
+    b, h, t, d = q.shape
+    group = h // k.shape[1]
+    kk, vv = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    return F.scaled_dot_product_attention(q, kk, vv, is_causal=True).transpose(1, 2).reshape(b, t, h * d)
+
+
+def phase_k8() -> dict:
+    """K8 (``ops/lm_attention.py``) on the card: its split kernel bitwise
+    ``query_planes`` and ``kv_planes``; at the cell's shape and at ragged
+    shapes its error against float64 beside the expansion + SDPA route's
+    and the TF32 math route's; then its time at the cell's shape (split
+    included) against that route (``library_ms``) and its plain version, in
+    turns, beside the bound. Returns the numbers of a decoder call: 30
+    layers."""
+    with torch.inference_mode():
+        for b, h, hk, t in ((1, 8, 2, 100), (2, 32, 8, 257), (1, 4, 4, 70)):
+            q, k, v = k8_operands(b, h, hk, t, seed=t)
+            got_q, got_kv = k8.planes(q, k, v)
+            if not (torch.equal(got_q, k8.query_planes(q, hk)) and torch.equal(got_kv, k8.kv_planes(k, v))):
+                raise AssertionError(f"K8: lm_planes at {(b, h, hk, t)} differs from query_planes / kv_planes")
+        q, k, v = k8_operands(2, 32, 8, 257, seed=81)
+        plain_err = float((k8.lm_attention(q, k, v) - k8.lm_attention_reference(q, k, v)).abs().max())
+    log("k8", part="layout", planes_equal=True, err_vs_plain=f"{plain_err:.3e}")
+    failures = []
+    for b, h, hk, t in K8_RAGGED + (K8_CELL,):
+        q, k, v = k8_operands(b, h, hk, t, seed=b + h + hk + t)
+        with torch.inference_mode():
+            got, counts = run_counted(lambda: k8.lm_attention(q, k, v))
+            err = k8_errors(q, k, v, {"k8": got, "sdpa": k8_library(q, k, v)})
+        ok = (counts["lm_attention"] == 1 and counts["lm_attention.planes"] == 1 and sum(counts.values()) == 2
+              and all(e <= K8_SDPA_RATIO * s for e, s in zip(err["k8"], err["sdpa"]))
+              and ((b, h, hk, t) in K8_NO_TF32 or all(K8_TF32_MARGIN * e <= x for e, x in zip(err["k8"], err["tf32"]))))
+        log("k8", shape=f"{b}x{h}x{hk}x{t}", err_max=f"{err['k8'][0]:.3e}", err_mean=f"{err['k8'][1]:.3e}",
+            sdpa_err_max=f"{err['sdpa'][0]:.3e}", sdpa_err_mean=f"{err['sdpa'][1]:.3e}",
+            tf32_err_max=f"{err['tf32'][0]:.3e}", tf32_err_mean=f"{err['tf32'][1]:.3e}", ok=ok)
+        if not ok:
+            failures.append((b, h, hk, t))
+        del q, k, v, got
+        free()
+    b, h, hk, t = K8_CELL
+    q, k, v = k8_operands(b, h, hk, t, seed=88)
+    with torch.inference_mode():
+        kern = lambda: k8.lm_attention(q, k, v)  # noqa: E731
+        tm = in_turns(kern, lambda: k8.lm_attention_reference(q, k, v), lambda: k8_library(q, k, v), iters=3)
+        split_ms = cuda_ms(lambda: k8.planes(q, k, v), 10)
+    bound = k8_bound(b, h, hk, t)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    log("k8", part="cell", shape=f"{b}x{h}x{hk}x{t}", card_ms=f"{tm['ms']:.3f}", card_runs="%.3f,%.3f" % tm["runs"],
+        split_ms=f"{split_ms:.3f}", plain_ms=f"{tm['plain_ms']:.1f}", fp32_tflops=f"{bound['flop'] / tm['ms'] / 1e9:.1f}",
+        attention_tflops=f"{bound['flop'] / (tm['ms'] - split_ms) / 1e9:.1f}",
+        library_tflops=f"{bound['flop'] / tm['library_ms'] / 1e9:.1f}", tf32_bound_ms=f"{bound['tf32_ms']:.3f}",
+        clocks_power=smi.replace(" ", ""), **bound_fields(tm, bound))
+    total = {key: 30 * tm[key] for key in ("ms", "plain_ms", "library_ms")}
+    log("k8", part="decoder_call", layers=30, launches=30, card_ms=f"{total['ms']:.1f}", split_ms=f"{30 * split_ms:.1f}",
+        library_ms=f"{total['library_ms']:.1f}", bound_ms=f"{30 * bound['bound_ms']:.1f}",
+        tf32_bound_ms=f"{30 * bound['tf32_ms']:.1f}", share_of_bound=f"{bound['bound_ms'] / tm['ms']:.4f}")
+    del q, k, v
+    free()
+    if failures:
+        raise AssertionError(f"K8: errors past the bounds at {failures}")
+    return {**total, "bound_ms": 30 * bound["bound_ms"], "bound_by": bound["bound_by"], "max_abs_err": plain_err}
+
+
 def numpy_mel64(wav: np.ndarray, cfg: MelConfig) -> np.ndarray:
     """Independent float64 mel power: numpy rfft of reflect-padded frames."""
     pad = cfg.n_fft // 2
@@ -1668,6 +1827,7 @@ def voxtral_rows(seed: int) -> torch.Tensor:
 
 
 VOXTRAL_K7_LAUNCHES = 30 * 4  # a scorer call: q|k|v, o, gate|up and down in each of 30 decoder layers
+VOXTRAL_K8_LAUNCHES = 30  # and the attention of each layer
 # the scores on K7's route and on F.linear's, float32 roundings of the
 # decoder's projections apart (an H100 read 1.19e-6): held to the
 # voxtral-detect cell's score_gap limit against its float64 reference
@@ -1682,12 +1842,16 @@ def phase_voxtral() -> dict:
     apart, one ``wave_mel`` launch; a log-mel of each window alone misses
     by far more than the bound; then one ``make_voxtral_detect_scorer``
     call on those clips: one K1 launch, 120 K7 launches (four a decoder
-    layer) and their 120 activation splits and no other hand-written
-    kernel (the first call also splits the weights), 20 windows encoded and
-    7,540 decoder positions a call; the decoder alone over the call's input
-    launches no SIMT SGEMM, its time against the ``F.linear`` route's, and
-    the scores of the two routes within ``VOXTRAL_ROUTE_GAP``. Returns the
-    launches."""
+    layer) and their 120 activation splits, 30 K8 launches (one a layer)
+    and their 30 splits, and no other hand-written kernel (the first call
+    also splits the weights), 20 windows encoded and 7,540 decoder
+    positions a call; the decoder alone over the call's input launches no
+    SIMT SGEMM and no CUTLASS attention, its time against the ``F.linear``
+    route's, and the scores of the two routes within
+    ``VOXTRAL_ROUTE_GAP``; one ``lm_attend`` over the first layer's q, k
+    and v runs K8's two kernels alone (no K/V expansion, no merge copy),
+    and the scores with K8 refused (the expansion + SDPA route) lie within
+    ``VOXTRAL_ROUTE_GAP``. Returns the launches."""
     cfg = WHISPER_LARGE_V3.mel
     frames = 2 * WHISPER_LARGE_V3.positions
     cpu_wav = voxtral_rows(31)
@@ -1722,7 +1886,8 @@ def phase_voxtral() -> dict:
     scores, counts = run_counted(lambda: score(wav))
     work = work_counts()
     want = {**dict.fromkeys(counts, 0), "wave_mel": 1, "split_gemm": VOXTRAL_K7_LAUNCHES,
-            "split_gemm.planes": VOXTRAL_K7_LAUNCHES}
+            "split_gemm.planes": VOXTRAL_K7_LAUNCHES, "lm_attention": VOXTRAL_K8_LAUNCHES,
+            "lm_attention.planes": VOXTRAL_K8_LAUNCHES}
     if counts != want or warm["split_gemm.planes"] != 2 * VOXTRAL_K7_LAUNCHES:
         raise AssertionError(f"make_voxtral_detect_scorer: launches {counts} (first call {warm}), want {want}")
     if work != {"voxtral.calls": 1, "voxtral.windows": 20, "voxtral.positions": 2 * 3770}:
@@ -1731,7 +1896,8 @@ def phase_voxtral() -> dict:
         raise AssertionError(f"make_voxtral_detect_scorer: bad scores {scores}")
     ms = cuda_ms(lambda: score(wav), 2)
     log("voxtral", part="scorer", clips=2, ms_per_call=f"{ms:.1f}", clips_per_s=f"{2e3 / ms:.3f}",
-        launches=counts["wave_mel"], split_gemm=counts["split_gemm"], windows=work["voxtral.windows"],
+        launches=counts["wave_mel"], split_gemm=counts["split_gemm"], lm_attention=counts["lm_attention"],
+        windows=work["voxtral.windows"],
         positions=work["voxtral.positions"], peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
 
     # the decoder alone over the call's input: no SIMT SGEMM on K7's route;
@@ -1740,6 +1906,7 @@ def phase_voxtral() -> dict:
         x = model.embed_prompt(model.projector(model.encode(model.features(wav))))
         k7_wall, k7_busy, kernels = device_breakdown(lambda: model.decode(x), iters=2, top=64)
         sgemm = [name for _, _, name in kernels if "f32f32" in name or "sgemm" in name.lower()]
+        fmha = [name for _, _, name in kernels if "fmha" in name]
         refusals = k7.refusals
         k7.refusals = lambda x, w: ["forced"]
         try:
@@ -1748,18 +1915,45 @@ def phase_voxtral() -> dict:
         finally:
             k7.refusals = refusals
         gap = float((scores - lib_scores).abs().max())
+        # one layer's attention on K8's route: K8's split and launch, nothing
+        # else; then the scores with K8 refused (the expansion + SDPA route)
+        layer = model.layers[0]
+        cos, sin = voxtral.rope_tables(x.shape[1], model.cfg.head_dim, model.cfg.rope_theta, x.device, x.dtype)
+        q, k, v = layer.project(layer.attn_norm(x), "qkv", layer.q, layer.k, layer.v)
+        q = voxtral.apply_rope(voxtral.split_heads(q, layer.heads), cos, sin)
+        k = voxtral.apply_rope(voxtral.split_heads(k, layer.kv_heads), cos, sin)
+        v = voxtral.split_heads(v, layer.kv_heads)
+        _, attend_busy, attend_kernels = device_breakdown(lambda: voxtral.lm_attend(q, k, v), iters=2, top=16)
+        refusals = k8.refusals
+        k8.refusals = lambda q, k, v: ["forced"]
+        try:
+            sdpa_scores = score(wav)
+            sdpa_wall, _, _ = device_breakdown(lambda: model.decode(x), iters=2, top=4)
+        finally:
+            k8.refusals = refusals
+        k8_gap = float((scores - sdpa_scores).abs().max())
+    attend_names = sorted(name for _, _, name in attend_kernels)
     log("voxtral", part="decoder", k7_ms=f"{k7_wall:.1f}", k7_device_ms=f"{k7_busy:.1f}",
         f_linear_ms=f"{lib_wall:.1f}", f_linear_device_ms=f"{lib_busy:.1f}", score_gap=f"{gap:.3e}",
-        sgemm_kernels=len(sgemm), top_kernels="; ".join(f"{ms:.1f}ms x{n} {name[:60]}" for ms, n, name in kernels[:5]))
+        sdpa_attention_ms=f"{sdpa_wall:.1f}", k8_score_gap=f"{k8_gap:.3e}", attend_device_ms=f"{attend_busy:.2f}",
+        sgemm_kernels=len(sgemm), fmha_kernels=len(fmha),
+        top_kernels="; ".join(f"{ms:.1f}ms x{n} {name[:60]}" for ms, n, name in kernels[:5]))
     print("  f_linear route: " + "; ".join(f"{ms:.1f}ms x{n} {name[:60]}" for ms, n, name in lib_kernels[:5]),
           flush=True)
+    print("  lm_attend: " + "; ".join(f"{ms:.2f}ms x{n} {name[:60]}" for ms, n, name in attend_kernels), flush=True)
     if sgemm:
         raise AssertionError(f"voxtral decoder: SIMT SGEMM launches on K7's route: {sgemm}")
+    if fmha:
+        raise AssertionError(f"voxtral decoder: CUTLASS attention launches on K8's route: {fmha}")
+    if len(attend_names) != 2 or not all("lm_planes" in n or "lm_attention" in n for n in attend_names):
+        raise AssertionError(f"voxtral: lm_attend ran {attend_names}, not K8's split and attention alone")
     if gap > VOXTRAL_ROUTE_GAP:
         raise AssertionError(f"voxtral: scores on K7's and F.linear's routes {gap:.3e} apart")
-    del model, score, wav, scores, x
+    if k8_gap > VOXTRAL_ROUTE_GAP:
+        raise AssertionError(f"voxtral: scores on K8's and the SDPA route {k8_gap:.3e} apart")
+    del model, score, wav, scores, x, q, k, v
     free()
-    return {"wave_mel": 2, "split_gemm": 2 * VOXTRAL_K7_LAUNCHES}
+    return {"wave_mel": 2, "split_gemm": 2 * VOXTRAL_K7_LAUNCHES, "lm_attention": 2 * VOXTRAL_K8_LAUNCHES}
 
 
 def phase_fused() -> dict:
@@ -3603,8 +3797,9 @@ def main() -> int:
     k5_timed = timed_phase(phase_k5)
     k6_timed = timed_phase(phase_k6)
     k7_timed = timed_phase(phase_k7)
+    k8_timed = timed_phase(phase_k8)
     launches = {"wave_mel": 0, "ct_mel": 0, "fused_mel_from_frames": k2["launches"], "lstm_scan": 0,
-                "lstm_scan.h32": 0, "cqcc": 0, "gmm_llr": 0, "split_gemm": 0}
+                "lstm_scan.h32": 0, "cqcc": 0, "gmm_llr": 0, "split_gemm": 0, "lm_attention": 0}
     for part in (timed_phase(phase_e2e)[0], timed_phase(phase_serve), timed_phase(phase_score)):
         for name, n in part.items():
             launches[name] += n
@@ -3616,6 +3811,7 @@ def main() -> int:
     voxtral = timed_phase(phase_voxtral)
     launches["wave_mel"] += voxtral["wave_mel"]
     launches["split_gemm"] += voxtral["split_gemm"]
+    launches["lm_attention"] += voxtral["lm_attention"]
     launches["ct_mel"] += timed_phase(phase_train)["ct_mel"]
     timed_phase(phase_gmm_train)
     launches["ct_mel"] += timed_phase(phase_features)["ct_mel"]
@@ -3631,6 +3827,7 @@ def main() -> int:
         "cqcc": k5_timed,
         "gmm_llr": k6_timed,
         "split_gemm": k7_timed,
+        "lm_attention": k8_timed,
     }
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -44,7 +44,7 @@ def _zeros() -> dict[str, int]:
 def test_the_ledger_keeps_every_counter_in_order():
     assert ops.LAUNCH_COUNTERS == (
         "wave_mel", "fused_mel_from_frames", "ct_mel", "ct_mel.reflect", "ct_mel.db", "lstm_scan", "lstm_scan.h32",
-        "cqcc", "gmm_llr", "split_gemm", "split_gemm.planes",
+        "cqcc", "gmm_llr", "split_gemm", "split_gemm.planes", "lm_attention", "lm_attention.planes",
     )
     assert tuple(ops.launch_counts()) == ops.LAUNCH_COUNTERS
     counts = ops.launch_counts()
